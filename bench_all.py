@@ -20,22 +20,10 @@ def log(msg):
 
 
 
-def _enable_compile_cache():
-    """Persistent compilation cache: remote compiles cost minutes; cached
-    executables survive across runs on this machine."""
-    import os
-
-    import jax
-
-    d = os.environ.get(
-        "MINI_TPU_JAX_CACHE", os.path.expanduser("~/.cache/mini_tpu_jax")
-    )
-    os.makedirs(d, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", d)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
 def main():
-    _enable_compile_cache()
+    from mini_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     import jax
     import jax.numpy as jnp
 

@@ -1,7 +1,7 @@
-"""Per-dataset benchmark: BFS / SSSP / PageRank / GCN across the graph
-FAMILIES named by BASELINE.json's configs, generated deterministically
-(this environment has zero egress, so SuiteSparse/OGB files cannot be
-fetched; each family's stand-in matches its structural profile):
+"""Per-dataset benchmark: BFS / SSSP / PageRank / GCN across graph
+families, generated deterministically (nothing is downloaded, so
+SuiteSparse/OGB files are not fetched; each family's stand-in matches its
+structural profile):
 
 * rmat16            — soc-LiveJournal-class power-law (BFS config)
 * delaunay_n17      — the delaunay_nXX family itself (SSSP config;
@@ -21,21 +21,10 @@ import sys
 import numpy as np
 
 
-def _enable_compile_cache():
-    import os
-
-    import jax
-
-    d = os.environ.get(
-        "MINI_TPU_JAX_CACHE", os.path.expanduser("~/.cache/mini_tpu_jax")
-    )
-    os.makedirs(d, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", d)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
-
 def main():
-    _enable_compile_cache()
+    from mini_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     import jax
     import jax.numpy as jnp
 

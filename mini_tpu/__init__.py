@@ -1,9 +1,9 @@
-"""mini-tpu: a TPU-native, data-centric graph processing framework.
+"""mini-tpu: a data-centric graph processing framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of gunrock/mini
-(see /root/reference): frontier-centric graph algorithms expressed as a small
-set of operators (advance, filter, neighborhood-reduce) over shared CSR/CSC
-graph storage — but formulated the TPU way:
+A from-scratch JAX/XLA re-design of the capabilities of gunrock/mini:
+frontier-centric graph algorithms expressed as a small set of operators
+(advance, filter, neighborhood-reduce) over shared CSR/CSC graph storage,
+formulated for a compiled array program:
 
 * frontiers are dense bitmaps (fixed shapes, jit-friendly) with an optional
   compact (index) form,
@@ -11,9 +11,9 @@ graph storage — but formulated the TPU way:
   segment reductions (no atomics; cf. reference `intrinsics.hxx:12-22`),
 * iteration loops run fully on device under `lax.while_loop` (the reference
   syncs device->host every iteration, `advance.hxx:43`),
-* feature-valued aggregation (SpMM) runs on the MXU via a Pallas kernel and
-  powers GNN message passing over the same graph slice,
-* multi-chip scaling is edge partitioning + `shard_map` collectives over a
+* feature-valued aggregation (SpMM: gather + segment reduce) powers GNN
+  message passing over the same graph slice,
+* multi-device scaling is edge partitioning + `shard_map` collectives over a
   `jax.sharding.Mesh` (the reference is single-GPU only, `README.md:4`).
 """
 

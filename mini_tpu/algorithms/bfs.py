@@ -6,7 +6,7 @@ filter(compact -1 holes), switching to a Ligra-style pull loop
 (bitmap + advance_backward over CSC) when
 ``num_unvisited < frontier_len * alpha``.
 
-TPU re-design: labels/preds/frontier are dense arrays updated by
+Design: labels/preds/frontier are dense arrays updated by
 deterministic segment reductions; the whole loop runs on device under
 ``lax.while_loop`` (the reference pays a device->host sync per iteration,
 `advance.hxx:43`).  Push masks edges by frontier[src]; pull masks by
@@ -228,15 +228,16 @@ def _bfs_impl(
 def _auto_chain_cap(g: GraphSlice, sparse_cape: int) -> int:
     """Default BFS chain capacity from a cheap family proxy.
 
-    Measured (BASELINE.md round-5 chaining table): chaining wins 2.27x
-    on grid-724 (every BFS round fits the chain) but is a ~4% LOSS on
-    delaunay-2^18 (frontiers outgrow the chain by round ~20, leaving
-    only the derivation surcharge) and irrelevant on RMAT (dense/pull
-    tiers).  Mean out-degree < 5 selects the grid/road-network family
-    where BFS wavefronts stay narrow; everything else keeps chaining
-    off.  (SSSP delta-stepping keeps chaining unconditionally — its
-    bucketing bounds the frontier by construction.)"""
-    deg = float(np.asarray(g.out_degrees)[: int(g.n)].mean())
+    Chaining pays when every BFS round fits the chain (grids, road
+    networks); on Delaunay-like meshes frontiers outgrow it within a few
+    dozen rounds, and on RMAT the dense/pull tiers take over.  Mean
+    out-degree < 5 selects the grid/road-network family where BFS
+    wavefronts stay narrow; everything else keeps chaining off.  The
+    mean comes from the static ``m / n``, so ``bfs`` traces under
+    ``jax.jit`` with the graph as an argument.  (SSSP delta-stepping
+    keeps chaining unconditionally — its bucketing bounds the frontier
+    by construction.)"""
+    deg = g.m / max(g.n, 1)
     return default_chain_cap(g, sparse_cape) if deg < 5.0 else 0
 
 
@@ -253,14 +254,13 @@ def bfs(
     (reference default ``1/num_nodes``, `tests/bfs/test_bfs.cu:30`);
     ``sparse_capv``/``sparse_cape`` bound the compact-push path (0 disables).
     ``chain_cap`` bounds the compact-chained reentry rounds (round 5;
-    0 disables chaining, None = measured default).
+    0 disables chaining, None = the family default).
     """
     if alpha is None:
         alpha = 1.0 / max(g.n, 1)
     if max_iter is None:
         max_iter = g.n_pad
     # 0 disables the sparse path; None lets ops/sparse.default_tiers pick
-    # (measured sweet spot ~m/64; see BENCH history)
     if sparse_capv is None:
         sparse_capv = min(g.n_pad, max(2048, g.m_pad // 64))
     if sparse_cape is None:
@@ -302,9 +302,8 @@ def bfs_batch(
     chain_cap: int | None = None,
 ) -> BfsResult:
     """Multi-source BFS (Graph500-style batch): runs the single-source
-    program once per source inside ONE jitted ``lax.scan``, so the ~25 ms
-    per-dispatch cost amortizes across the batch (measured 90.7 MTEPS
-    amortized vs 41 single-shot at rmat16 on v5e).  Every field of the
+    program once per source inside ONE jitted ``lax.scan``, so the
+    per-dispatch host cost amortizes across the batch.  Every field of the
     returned :class:`BfsResult` gains a leading ``[len(srcs)]`` axis;
     results are bitwise-identical to per-source :func:`bfs` calls.
 
@@ -343,7 +342,7 @@ def bfs_cpu(hg: HostGraph, src: int) -> np.ndarray:
     while frontier.any():
         nxt = np.zeros(hg.n, dtype=bool)
         active = frontier[hg.csr_srcs] & (labels[hg.csr_dsts] == -1)
-        np.logical_or.at(nxt, hg.csr_dsts[active], True)
+        nxt[hg.csr_dsts[active]] = True
         labels[nxt] = level + 1
         frontier = nxt
         level += 1
@@ -353,12 +352,23 @@ def bfs_cpu(hg: HostGraph, src: int) -> np.ndarray:
 def validate_preds(
     labels: np.ndarray, preds: np.ndarray, hg: HostGraph, src: int
 ) -> bool:
-    """Check the predecessor array encodes a valid BFS tree."""
-    adj = set(zip(hg.csr_srcs.tolist(), hg.csr_dsts.tolist()))
-    for v in range(hg.n):
-        if v == src or labels[v] <= 0:
-            continue
-        p = int(preds[v])
-        if p < 0 or labels[p] != labels[v] - 1 or (p, v) not in adj:
-            return False
-    return True
+    """Check the predecessor array encodes a valid BFS tree: every reached
+    vertex but ``src`` has a parent one level up, joined to it by an edge.
+
+    Vectorized: CSR edges are sorted by (src, dst), so the keys
+    ``src * n + dst`` are sorted and one ``searchsorted`` tests all
+    parent edges at once."""
+    labels = np.asarray(labels)[: hg.n]
+    preds = np.asarray(preds)[: hg.n].astype(np.int64)
+    v = np.flatnonzero(labels > 0)  # src has label 0
+    if v.size == 0:
+        return True
+    p = preds[v]
+    if np.any((p < 0) | (p >= hg.n)):
+        return False
+    if np.any(labels[p] != labels[v] - 1):
+        return False
+    keys = hg.csr_srcs.astype(np.int64) * hg.n + hg.csr_dsts
+    want = p * hg.n + v
+    pos = np.minimum(np.searchsorted(keys, want), hg.m - 1)
+    return hg.m > 0 and bool(np.all(keys[pos] == want))

@@ -8,7 +8,7 @@ local minima with ``2*iter+1`` and strict local maxima with ``2*iter+2``
 (`coloring/coloring_functor.hxx:11-29`); hashes are re-randomized each round
 (`coloring/coloring_problem.hxx:53-57`).
 
-TPU re-design: both reductions are masked segment min/max over one edge
+Design: both reductions are masked segment min/max over one edge
 sweep; hashes come from `jax.random` with a per-iteration folded key (the
 reference uses curand `fill_random`); the loop is a `lax.while_loop`.
 Properness is guaranteed: adjacent uncolored vertices cannot both be strict

@@ -7,7 +7,7 @@ removed set decrementing each out-neighbor's degree with atomicAdd
 (`kcore/kcore_functor.hxx:31-35`); when no vertex with degree >= k survives,
 the largest k-core is k-1.
 
-TPU re-design: degrees/cores are dense arrays; the degree decrement is a
+Design: degrees/cores are dense arrays; the degree decrement is a
 segment-sum of removed-source edge counts (deterministic, replacing
 atomicAdd); both the peel loop and the outer k loop are on-device
 ``lax.while_loop``s — zero host round-trips.  Degrees carry over between k

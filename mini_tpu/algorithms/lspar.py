@@ -7,7 +7,7 @@ minwise hash; (2) advance writes per-edge sim = (minhash[src]==minhash[dst]);
 descending; (4) advance tags the top-⌊deg^e⌋ edges per vertex;
 (5) ``transform_compact`` gathers the selected edges.
 
-TPU re-design: no sort and no per-edge gather at all.  Similarities are
+Design: no sort and no per-edge gather at all.  Similarities are
 binary, so an edge's rank under the stable (sim descending) segmented sort
 is a PREFIX COUNT: ``sim==1`` edges rank by the number of earlier sim-1
 edges in their segment, ``sim==0`` edges by (segment's sim-1 total + number

@@ -16,7 +16,7 @@ Two variants:
 * ``variant="standard"`` — textbook PageRank: each neighbor contributes
   ``rank[u] / out_degree[u]``, update ``(1-d)/n + d * sum``; this is the
   numerically meaningful one and the benchmark config
-  ("neighborhood-reduce PageRank", BASELINE.json configs[2]).
+  ("neighborhood-reduce PageRank").
 
 Both run as one SpMV per iteration under ``lax.while_loop``.
 """

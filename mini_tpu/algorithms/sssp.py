@@ -6,7 +6,7 @@ loop (`intrinsics.hxx:12-22`, `sssp/sssp_functor.hxx:20-28`), then a filter
 drops -1 holes and per-iteration duplicates via a visited stamp
 (`sssp/sssp_functor.hxx:12-18`), until the frontier empties.
 
-TPU re-design: the relax step is a single segmented float-min over the
+Design: the relax step is a single segmented float-min over the
 CSC-ordered edge sweep, masked by frontier membership — deterministic (min is
 exact in f32, order-independent), so distances are bitwise-reproducible; the
 visited-stamp dedup is subsumed by the bitmap frontier (a set, not a queue).
@@ -73,11 +73,9 @@ def _sssp_impl(
     # yet", so no setup sort is needed
     dist_csc0 = jnp.full(m_pad, inf, jnp.float32)
 
-    # incremental-sync capacity: a bounded scatter of K out-edges costs
-    # ~16 ns/edge (gather rank + scatter) plus fixed compaction overhead
-    # vs the full payload sort's ~2.5 ns/edge over ALL m — measured
-    # crossover sweep in scratch/bench_sssp_r4.py; 0 disables the
-    # incremental path entirely (pure round-3 behavior)
+    # incremental-sync capacity: a bounded scatter of K out-edges (gather
+    # rank + scatter) plus fixed compaction overhead, in place of the full
+    # payload sort over ALL m; 0 disables the incremental path entirely
     cape_u = sync_cape
 
     def sync_cache(dist, vset, dist_csc):
@@ -209,25 +207,23 @@ def _sssp_delta_impl(
     processed in distance buckets ``dist < B``, ``B`` advancing by
     ``delta`` when the active bucket drains.  Bucketing keeps each
     round's frontier SMALL, so rounds ride the bounded sparse tiers
-    (O(cape)) instead of the weighted Bellman-Ford's O(m) dense sweeps —
-    the round-structure cost BASELINE.md shows is binding at s19.  The
+    (O(cape)) instead of the weighted Bellman-Ford's O(m) dense sweeps.  The
     fixpoint is the same exact f32 shortest-distance solution, so
     results stay bitwise-equal to the Dijkstra oracle.
 
-    Round-5 "compact chaining": light-edge reentry rounds — the vast
+    "Compact chaining": light-edge reentry rounds — the vast
     majority on the target family — run CHAINED: the next compact
     frontier is derived straight from the O(chain_cap) relaxed-edge
     arrays (`ops/sparse.relax_and_chain`), and the pending bitmap
     is maintained by two bounded scatters (clear the expanded actives,
     set the improved dsts) — skipping the O(n) bitmap top_k + fe/fl
-    scans + elementwise update that were the measured ~3 ms/round
-    floor at n=524k.  Bucket boundaries and chain overflows fall back
+    scans + elementwise update of a bitmap round.  Bucket boundaries and chain overflows fall back
     to the bitmap path (one O(n) round per bucket).  ``chain_cap=0``
     disables chaining (pure round-4 bitmap rounds).  A rejected
     alternative: replacing the bitmap with an implicit
     ``pending(v) == dist[v] < rel[v]`` lazy-deletion array made BITMAP
-    rounds pay an O(capv) gather+scatter each and measured 6.8 s vs
-    4.8 s on grid-724 — the bitmap stays."""
+    rounds pay an O(capv) gather+scatter each and was slower on a grid —
+    the bitmap stays."""
     n_pad = g.n_pad
     inf = jnp.float32(jnp.inf)
     dlt = jnp.float32(delta)
@@ -292,7 +288,7 @@ def _sssp_delta_impl(
         # spin rounds)
         min_pend = jnp.min(jnp.where(pending, dist, inf))
         B_next = (jnp.floor(min_pend / dlt) + 1.0) * dlt
-        # f32 progress guard (ADVICE r4): when min_pend/delta >= 2^24 the
+        # f32 progress guard: when min_pend/delta >= 2^24 the
         # floor+1 round-trip can round B_next back to <= min_pend, leaving
         # the active set empty forever; force B strictly past min_pend
         B_next = jnp.maximum(B_next, jnp.nextafter(min_pend, inf))
@@ -418,30 +414,20 @@ def sssp(
     :func:`_auto_variant`.  ``with_preds=False`` skips the predecessor
     post-pass (two payload sorts + a reduce).  ``chain_cap`` bounds the
     compact-chained reentry rounds of the delta variant (0 disables
-    chaining; None = measured default, see :func:`_default_chain_cap`)."""
+    chaining; None = default, see :func:`_default_chain_cap`)."""
     if max_iter is None:
         max_iter = g.n_pad  # Bellman-Ford converges in <= n-1 rounds
     # 0 disables the sparse path; None lets ops/sparse.default_tiers pick
-    # (measured sweet spot ~m/64; see BENCH history)
     if sparse_capv is None:
         sparse_capv = min(g.n_pad, max(2048, g.m_pad // 64))
     if sparse_cape is None:
         sparse_cape = min(g.m_pad, max(2048, g.m_pad // 64))
     if sync_cape is None:
         # Incremental dense-cache sync capacity; 0 (default) = full
-        # rebuild every dense round.  Measured sweep on weighted RMAT
-        # (scratch/bench_sssp_sweep.py, v5e 2026-08-21, ms / MTEPS):
-        #
-        #   s16: off 74.1/28.3  m/8 93.0  m/32 79.7  m/64 81.2
-        #   s19: off 640.6/26.2 m/8 866.7 m/32 608.0/27.6 m/64 636.0
-        #
-        # i.e. the s19 "dip" is ROUND STRUCTURE, not the payload sort:
-        # weighted Bellman-Ford rounds carry improvement sets beyond the
-        # bounded-sync crossover (~m/6 at 16 ns/edge scatter+gather vs
-        # the sort's 2.5 ns/edge), so incremental sync pays at most +5%
-        # at s19 and loses at s16.  Kept opt-in for low-improvement-rate
-        # workloads (near-BFS weight distributions, incremental
-        # re-solves); pass e.g. m_pad//32 to enable.
+        # rebuild every dense round.  Weighted Bellman-Ford rounds on RMAT
+        # carry improvement sets too large for the bounded sync to pay;
+        # it is opt-in for low-improvement-rate workloads (near-BFS weight
+        # distributions, incremental re-solves); pass e.g. m_pad//32.
         sync_cape = 0
     if variant == "auto":
         variant = _auto_variant(g)
@@ -467,17 +453,16 @@ from mini_tpu.ops.sparse import default_chain_cap as _default_chain_cap
 
 def _default_delta(g: GraphSlice) -> float:
     """Default bucket width: a degree-keyed multiple of the mean edge
-    weight (measured optima, BASELINE.md round-5 sweep).
+    weight.
 
-    The textbook delta (~mean weight, targeting work-efficiency) LOSES
-    1.7-2.7x on every family measured here: on this architecture each
-    round carries a fixed floor cost, so round COUNT binds, not
+    Each round carries a fixed floor cost, so round COUNT binds, not
     per-round work — the optimum is the WIDEST bucket whose frontiers
     still fit the bounded sparse tier (wider -> fewer rounds, too wide
-    -> dense spill).  That boundary is family-dependent: grid-like
-    (deg~4) tolerates 64x mean (2.8x over Bellman), delaunay-like
-    (deg~6) spills past 4x (1.8x over Bellman), and high-degree RMAT is
-    flat in delta."""
+    -> dense spill), wider than the textbook delta (~mean weight).  That
+    boundary is family-dependent: grid-like graphs (deg~4) tolerate 64x
+    the mean, delaunay-like (deg~6) spill past 4x, and high-degree RMAT
+    is flat in delta.  The multiples are due to be re-fitted on the GPU
+    (ROADMAP.md)."""
     w = np.asarray(g.csc_weights)
     mask = np.asarray(g.edge_mask_csc)
     if not mask.any():
@@ -490,11 +475,9 @@ def _default_delta(g: GraphSlice) -> float:
 def _auto_variant(g: GraphSlice) -> str:
     """Pick the SSSP variant from a cheap family proxy.
 
-    Measured round-5 sweep (BASELINE.md, weighted 2M-edge instances):
-    delta-stepping with the wide default bucket beats Bellman-Ford 1.2x
-    on grid2d (bucketing keeps every round on the bounded sparse tiers
-    — 1789 sparse rounds vs Bellman's 723 sparse + 788 DENSE), is a
-    ~5% win on delaunay, and a wash on RMAT.  Mean out-degree <
+    Delta-stepping with the wide default bucket keeps every round of a
+    grid on the bounded sparse tiers, where Bellman-Ford falls to dense
+    rounds; on RMAT the two are close.  Mean out-degree <
     ``_AUTO_DEGREE_THRESHOLD`` selects the mesh/road-network family
     (grid ~4, delaunay ~6, RMAT-ef16 ~32) where bucketing pays.
     Host-side and O(1) (uses the prebuilt degree array).
@@ -504,7 +487,7 @@ def _auto_variant(g: GraphSlice) -> str:
 
 
 # mean out-degree below which _auto_variant picks delta-stepping: the
-# measured win region is the low-degree mesh families (BASELINE.md r5)
+# low-degree mesh families
 _AUTO_DEGREE_THRESHOLD = 8.0
 
 
@@ -548,7 +531,7 @@ def sssp_batch(
     dispatch-amortized batch form (see :func:`mini_tpu.algorithms.bfs.
     bfs_batch` for the design rationale).  Each result field gains a
     leading ``[len(srcs)]`` axis; bitwise-identical to per-source calls.
-    ``variant``/``delta``/``with_preds`` mirror :func:`sssp` (ADVICE r4:
+    ``variant``/``delta``/``with_preds`` mirror :func:`sssp` (
     the CLI's ``--sources`` form previously dropped the variant)."""
     if max_iter is None:
         max_iter = g.n_pad
@@ -557,7 +540,7 @@ def sssp_batch(
     if sparse_cape is None:
         sparse_cape = min(g.m_pad, max(2048, g.m_pad // 64))
     if sync_cape is None:
-        sync_cape = 0  # see sssp(): full rebuild is the measured default
+        sync_cape = 0  # see sssp(): full rebuild is the default
     srcs = jnp.atleast_1d(jnp.asarray(srcs, jnp.int32))
     if variant == "auto":
         variant = _auto_variant(g)

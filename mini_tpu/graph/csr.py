@@ -4,7 +4,7 @@ The reference keeps a CSR + CSC "gslice" of device arrays
 (`/root/reference/gunrock/src/graph.hxx:37-83`): row offsets, column indices,
 edge weights and a per-edge source array for each direction, plus scratch for
 the per-iteration degree scan.  Here the same information is kept as static-
-shape JAX arrays padded to TPU-friendly multiples, and the scratch array is
+shape JAX arrays padded to fixed multiples, and the scratch array is
 unnecessary (no host readbacks; reductions are segmented on device).
 
 Design deviations from the reference, on purpose:
@@ -18,8 +18,8 @@ Design deviations from the reference, on purpose:
   ``transpose=True`` to the loader to reproduce that behavior.
 * Padding: vertices are padded to a multiple of ``n_multiple`` (ghost
   vertices with zero degree) and edges to a multiple of ``m_multiple``
-  (masked ghost edges attached to the last ghost vertex) so every kernel
-  sees shapes aligned to VPU/MXU tiles and shardable block sizes.
+  (masked ghost edges attached to the last ghost vertex) so shapes come
+  in few sizes and split into shardable blocks.
 """
 
 from __future__ import annotations
@@ -188,16 +188,11 @@ class GraphSlice:
         "directed",
         "max_out_degree",
         "max_in_degree",
-        "fingerprint",  # stable id of the host graph; keys the banded-
-        # layout cache (graph/banded.py) across jit retraces
     )
 
     def __init__(self, **kw):
         for f in self._DATA_FIELDS + self._META_FIELDS:
-            if f == "fingerprint":
-                setattr(self, f, kw.get(f))
-            else:
-                setattr(self, f, kw[f])
+            setattr(self, f, kw[f])
 
     @staticmethod
     def from_host(
@@ -259,42 +254,8 @@ class GraphSlice:
                 [np.ones(m, bool), np.zeros(pad_e, bool)]
             ),
         )
-        # Fingerprint the host graph and register the padded host arrays so
-        # banded SpMM layouts (graph/banded.py) can be built lazily and
-        # found again from inside jit (meta fields survive retracing).
-        import hashlib
-
-        from mini_tpu.graph import banded as _banded
-
-        hsh = hashlib.blake2b(digest_size=16)
-        hsh.update(np.int64(n).tobytes())
-        hsh.update(np.int64(m).tobytes())
-        hsh.update(arrays["row_offsets"].tobytes())
-        hsh.update(arrays["csr_dsts"].tobytes())
-        hsh.update(arrays["csr_weights"].tobytes())
-        fingerprint = hsh.hexdigest()
-        _banded.register_host_graph(
-            fingerprint,
-            dict(
-                row_offsets=arrays["row_offsets"],
-                csr_dsts=arrays["csr_dsts"],
-                csr_srcs=arrays["csr_srcs"],
-                csr_weights=arrays["csr_weights"],
-                col_offsets=arrays["col_offsets"],
-                csc_srcs=arrays["csc_srcs"],
-                csc_dsts=arrays["csc_dsts"],
-                csc_weights=arrays["csc_weights"],
-                edge_mask=arrays["edge_mask"],
-                # host copy of the CSR->CSC rank: lets banded layout
-                # PAIRS compose their permutations statically (round 5,
-                # graph/banded.get_pull_to_push_rank)
-                csr_to_csc_rank=arrays["csr_to_csc_rank"],
-            ),
-        )
-
         put = (lambda a: jax.device_put(a, device)) if device else jnp.asarray
         return GraphSlice(
-            fingerprint=fingerprint,
             n=n,
             m=m,
             n_pad=n_pad,

@@ -1,7 +1,7 @@
 """Dataset loading for GNN workloads.
 
-The benchmark configs reference ogbn-arxiv-style node-classification input
-(BASELINE.json configs[4]).  This environment has no network egress, so:
+GNN workloads take ogbn-arxiv-style node-classification input.  Nothing is
+downloaded, so:
 
 * ``load_npz_dataset`` reads any pre-staged dataset in the simple npz
   format below (drop ogbn-arxiv in as ``{edges:[m,2], features:[n,F],

@@ -45,7 +45,7 @@ def delaunay(
     max_weight: int = 64,
 ) -> HostGraph:
     """Delaunay triangulation of 2**scale uniform random points — the
-    SuiteSparse ``delaunay_nXX`` family named by BASELINE.json configs
+    SuiteSparse ``delaunay_nXX`` family
     (planar, low uniform degree ~6: the opposite stress profile from
     RMAT's power law).  Deterministic per seed."""
     from scipy.spatial import Delaunay

@@ -23,146 +23,7 @@ from mini_tpu.ops.engine import (
     dst_vals_to_csc,
     reduce_csc_by_dst,
 )
-from mini_tpu.ops.permute import expand_to_edges
 from mini_tpu.ops.spmm import spmm
-
-
-def _gat_layer_banded(
-    g: GraphSlice,
-    hws: list,
-    a_src_l: list,  # per-head [d] attention vectors (score projectors)
-    s_src_l: list,  # per-head [n_pad] vertex src scores (for the bound)
-    s_dst_l: list,  # per-head [n_pad] vertex dst scores
-    d: int,
-    negative_slope: float,
-    message_dtype,
-    force: bool = False,
-    want_residuals: bool = False,
-):
-    """Banded-native attention layer (round 4, forward-only):
-
-    Scores, softmax weights, AND messages are all derived from the SAME
-    K band gathers that feed the aggregation SpMM — per band:
-    ``sc = xg @ A_src`` (the gathered rows already contain h_u W),
-    ``ed`` expands s_dst through the band's own segment offsets
-    (``BandedLayout.offsets``, new in round 4), and the unnormalized
-    softmax weight ``w = exp(LRelu(sc+ed) - LRelu(gmax+ed))`` multiplies
-    the gathered rows in place.  Eliminates vs the engine path: the
-    CSR->CSC score sort, both CSC edge expansions, the [m, H] weight
-    permute sort into banded order, and every segmented scan — nothing
-    per-edge remains outside the gather+kernel pipeline.  Denominators
-    ride a ones-column in each head's lane padding.
-
-    Returns the per-head normalized outputs, or None when the layout /
-    padding preconditions do not hold (caller falls back to the fused
-    engine path).  The raw Pallas call is not differentiable — training
-    flows through the custom VJP wrapper (:func:`_make_banded_layer_fn`)
-    whose backward recomputes via :func:`_gat_fused_heads`.
-    """
-    import math
-
-    import jax as _jax
-
-    on_tpu = _jax.default_backend() == "tpu"
-    if not (on_tpu or force):  # force=True: interpret-mode CI coverage
-        return None
-    from mini_tpu.graph.banded import get_layout
-    from mini_tpu.ops.pallas.spmm_banded import banded_segment_sum
-
-    H = len(hws)
-    step = 128 // math.gcd(H, 128)
-    d_pad = -(-d // step) * step
-    if d_pad <= d:  # no free denominator lane
-        return None
-    F = H * d_pad
-    if F % 128 != 0:
-        return None
-    layout = get_layout(g, "pull", row_bytes=F * 4)
-    if layout is None or not layout.offsets:
-        return None
-    n_pad = layout.n_pad
-    if hws[0].shape[0] != n_pad:
-        return None
-
-    # hw_cat with the denominator ones-column built by CONCAT (an
-    # .at[].set scatter would sit on the gather's critical path)
-    ones = jnp.ones((n_pad, 1), jnp.float32)
-    parts = []
-    for hw in hws:
-        parts.append(hw)
-        parts.append(ones)
-        if d_pad - d - 1 > 0:
-            parts.append(
-                jnp.zeros((n_pad, d_pad - d - 1), jnp.float32)
-            )
-    # hw_cat stays f32 through the gather so the attention scores are
-    # computed in f32 (matching the docstring contract and the fused-path
-    # backward recompute — ADVICE r4); the message_dtype cast happens
-    # fused into the per-band weight multiply below.  Gather time is
-    # dtype-independent on this chip (CLAUDE.md), so the cost is only the
-    # wider gather write (~1-2 ms at rmat16 bf16, measured round 5).
-    hw_cat = jnp.concatenate(parts, axis=-1)
-
-    # block-diagonal src-score projector [F, H] (zeros over the padding
-    # rows, so the ones-column never leaks into scores)
-    A = jnp.zeros((F, H), jnp.float32)
-    for hd in range(H):
-        A = A.at[hd * d_pad: hd * d_pad + d, hd].set(a_src_l[hd])
-    s_dst = jnp.stack(s_dst_l, axis=-1)  # [n_pad, H]
-    gmax = jnp.stack([jnp.max(s) for s in s_src_l])
-
-    from mini_tpu.utils.profiling import scope
-
-    dev = layout.dev()
-    msgs = []
-    w_bands = []
-    pos_bands = []
-    for k in range(layout.K):
-        lo = k * layout.band_rows
-        hi = min(lo + layout.band_rows, n_pad)
-        with scope(f"gat.band_attn_{k}"):
-            xg = hw_cat[lo:hi][dev["ids"][k]]  # [mk_pad, F]
-            mk = xg.shape[0]
-            sc = jnp.dot(
-                xg, A.astype(xg.dtype),
-                preferred_element_type=jnp.float32,
-            )  # [mk_pad, H]
-            ed = expand_to_edges(s_dst, dev["offsets"][k], mk)
-            e = jax.nn.leaky_relu(sc + ed, negative_slope)
-            bound = jax.nn.leaky_relu(
-                gmax[None, :] + ed, negative_slope
-            )
-            w = jnp.where(
-                dev["valid"][k][:, None], jnp.exp(e - bound), 0.0
-            )
-            if want_residuals:
-                w_bands.append(w)
-                pos_bands.append(sc + ed > 0)  # LeakyReLU' sign bits
-            if message_dtype is not None:
-                xg = xg.astype(message_dtype)
-            xg = (
-                xg.reshape(mk, H, d_pad) * w[:, :, None].astype(xg.dtype)
-            ).reshape(mk, F)
-        msgs.append(xg)
-    with scope("gat.banded_kernel"):
-        out = banded_segment_sum(
-            dev["bounds"], dev["offs2d"], msgs, precision="split",
-            edge_chunk=layout.edge_chunk, interpret=not on_tpu,
-        )
-    heads = []
-    denoms = []
-    for hd in range(H):
-        blk = out[:, hd * d_pad: hd * d_pad + d]
-        denom = jnp.maximum(out[:, hd * d_pad + d], 1e-30)
-        denoms.append(denom)
-        heads.append(blk / denom[:, None])
-    if want_residuals:
-        return heads, {
-            "w_bands": w_bands,
-            "pos_bands": pos_bands,
-            "denom": jnp.stack(denoms, axis=-1),  # [n_pad, H]
-        }
-    return heads
 
 
 def segment_softmax_by_dst(g: GraphSlice, scores: jnp.ndarray) -> jnp.ndarray:
@@ -170,8 +31,7 @@ def segment_softmax_by_dst(g: GraphSlice, scores: jnp.ndarray) -> jnp.ndarray:
     Masked (ghost) edges get weight 0.
 
     ``scores`` may be ``[m_pad]`` or ``[m_pad, H]`` — a trailing head axis
-    batches every expansion and segmented scan across heads in one pass
-    (the scan steps are lane-vectorized, so H heads cost ~1 head)."""
+    batches every expansion and segmented scan across heads in one pass."""
     neg = jnp.float32(-1e30)
     mask = g.edge_mask_csc
     mask = mask.reshape(mask.shape + (1,) * (scores.ndim - 1))
@@ -194,10 +54,12 @@ def _gat_fused_heads(
 ):
     """The fused engine-ops attention layer (differentiable): unnormalized
     weights from the global-max-stabilized scores, denominator via a
-    ones-column in the lane padding (or a per-head segment sum), divide
-    per vertex.  Returns the tuple of normalized heads.  Also serves as
-    the BACKWARD recompute of the banded layer's custom VJP — both
-    implementations compute the same function of (hws, s_src, s_dst)."""
+    ones-column in the head padding (or a per-head segment sum), divide
+    per vertex.  Returns the tuple of normalized heads.
+
+    Each head is padded to a multiple of ``128 // gcd(H, 128)`` columns,
+    so the head concat is a multiple of 128 wide; a spare padding column
+    carries the denominator."""
     import math
 
     n_heads = len(hws)
@@ -218,7 +80,7 @@ def _gat_fused_heads(
     if n_heads == 1:
         f = hws[0].shape[-1]
         fp = -(-f // 128) * 128
-        ones_col = fp > f  # denom rides the lane padding
+        ones_col = fp > f  # denom rides the padding
         hw_p = jnp.pad(hws[0], ((0, 0), (0, fp - f)))
         if ones_col:
             hw_p = hw_p.at[:, f].set(1.0)
@@ -235,9 +97,8 @@ def _gat_fused_heads(
         denom = jnp.maximum(denom, 1e-30)
         return (out[:, :f] / denom[:, None],)
 
-    # batch ALL heads into one blockwise SpMM: each head's dim is padded
-    # so the concat is lane-aligned, one gather + one MXU kernel pass
-    # covers every head
+    # batch ALL heads into one blockwise SpMM: one gather and one segment
+    # reduce cover every head
     step = 128 // math.gcd(n_heads, 128)
     d_pad = -(-d // step) * step
     ones_col = d_pad > d
@@ -265,265 +126,6 @@ def _gat_fused_heads(
         denom = jnp.maximum(denom, 1e-30)
         heads.append(blk / denom[:, None])
     return tuple(heads)
-
-
-_BANDED_VJP_CACHE: dict = {}
-
-
-_GAT_BANDED_BWD = "native"  # "native" (round 5) | "fused" (round-4 record)
-
-
-def _make_banded_layer_fn(g, d, negative_slope, message_dtype, force):
-    """custom_vjp wrapper making the banded-native attention layer
-    trainable.
-
-    Forward: the Pallas-kernel banded pipeline, saving as residuals the
-    per-band unnormalized weights ``w``, the LeakyReLU sign bits, the
-    softmax denominators, and the normalized outputs.
-
-    Backward (round 5, ``_GAT_BANDED_BWD="native"``): hand-derived banded
-    chain — no forward recompute.  With ``q_v = ct_v / W_v`` and
-    ``r_v = <ct_v, y_v> / W_v``, the ones-column trick runs in REVERSE:
-    a dst-side matrix ``Q`` whose per-head blocks are ``[q, -r, 0]``
-    makes the banded SDDMM ``<Q_dst, h̃_u>`` emit the weight cotangent
-    ``g_w = <q, h̃> - r`` directly, and the push-direction banded SpMM of
-    ``Q`` with the saved weights emits ``g_h̃``.  The score chain
-    ``g_e = w · g_w · LReLU'`` uses the saved sign bits (no score
-    recompute); ``ds_dst`` reduces straight off the pull bands and
-    ``ds_src`` off the push bands (per-band contiguous segment scans,
-    `ops/spmm.banded_heads_segment_sum`), with ONE precomputed
-    pull-band→push-band composite sort moving w and g between layouts
-    (`graph/banded.get_pull_to_push_rank` — collapses the earlier
-    band→CSC→CSR→band chain of 4 sorts).  The stabilizer bound's cotangent is
-    EXACTLY zero (it is a per-dst-segment constant that cancels in the
-    normalized ratio), and ``a_src``'s direct slot gets a zero cotangent
-    (its gradient flows through ``s_src = hw @ a_src`` outside).
-    Measured at rmat16 (BENCH_DETAILS r5): the round-4
-    recompute-through-fused backward cost 4.2x the forward; see the
-    gat_train rows for the native numbers.  ``"fused"`` restores the
-    round-4 recompute path (gradient-match-tested against it).  Cached
-    per (graph, config) so jit retraces reuse one custom_vjp instance
-    (concrete graphs only — a traced g must not leak, cf. engine)."""
-    # cache only for concrete graphs: a traced g (train steps take g as
-    # a jit argument) would leak its tracers into later retraces of the
-    # same fingerprint via the cached closure (cf. engine._engine_vjp_fns)
-    traced = any(
-        isinstance(l, jax.core.Tracer)
-        for l in jax.tree_util.tree_leaves(g)
-    )
-    key = (
-        getattr(g, "fingerprint", id(g)), d, float(negative_slope),
-        str(message_dtype), bool(force),
-    )
-    if not traced and key in _BANDED_VJP_CACHE:
-        return _BANDED_VJP_CACHE[key]
-
-    @jax.custom_vjp
-    def f(hws, a_src_l, s_src_l, s_dst_l):
-        heads = _gat_layer_banded(
-            g, list(hws), list(a_src_l), list(s_src_l), list(s_dst_l),
-            d, negative_slope, message_dtype, force=force,
-        )
-        assert heads is not None  # caller checked _banded_layer_supported
-        return tuple(heads)
-
-    def fwd(hws, a_src_l, s_src_l, s_dst_l):
-        heads, aux = _gat_layer_banded(
-            g, list(hws), list(a_src_l), list(s_src_l), list(s_dst_l),
-            d, negative_slope, message_dtype, force=force,
-            want_residuals=True,
-        )
-        assert heads is not None
-        heads = tuple(heads)
-        return heads, (
-            hws, a_src_l, s_src_l, s_dst_l,
-            tuple(aux["w_bands"]), tuple(aux["pos_bands"]),
-            aux["denom"], heads,
-        )
-
-    def _bwd_fused(res, ct):
-        hws, a_src_l, s_src_l, s_dst_l = res[:4]
-
-        def fused(hws_, s_src_, s_dst_):
-            return _gat_fused_heads(
-                g, list(hws_), list(s_src_), list(s_dst_), d,
-                negative_slope, message_dtype,
-            )
-
-        _, vjp = jax.vjp(fused, hws, s_src_l, s_dst_l)
-        g_hws, g_ss, g_sd = vjp(tuple(ct))
-        zeros_a = tuple(jnp.zeros_like(a) for a in a_src_l)
-        return g_hws, zeros_a, g_ss, g_sd
-
-    def bwd(res, ct):
-        if _GAT_BANDED_BWD != "native":
-            return _bwd_fused(res, ct)
-        import math
-
-        from mini_tpu.graph.banded import get_layout, get_pull_to_push_rank
-        from mini_tpu.ops.spmm import (
-            _weight_cotangent, _apply_banded, banded_heads_segment_sum,
-        )
-        from mini_tpu.ops.permute import apply_fixed_perm
-
-        hws, a_src_l, s_src_l, s_dst_l, w_bands, pos_bands, denom, ys = res
-        H = len(hws)
-        step = 128 // math.gcd(H, 128)
-        d_pad = -(-d // step) * step
-        F = H * d_pad
-        n_pad = hws[0].shape[0]
-        layout = get_layout(g, "pull", row_bytes=F * 4)
-        layout_b = get_layout(g, "push", row_bytes=F * 4)
-        comp = (
-            None
-            if layout is None or layout_b is None
-            else get_pull_to_push_rank(g, layout, layout_b)
-        )
-        if (
-            layout is None
-            or layout_b is None
-            or layout_b.n_pad != n_pad
-            or comp is None
-        ):
-            return _bwd_fused(res, ct)
-        dev = layout.dev()
-        interpret = jax.default_backend() != "tpu"
-        mdt = message_dtype
-
-        # q/r and Q (the ones-column trick in reverse: the ones lane
-        # carries -r, so SDDMM(<Q_dst, h~_u>) = <q, h~> - r = g_w)
-        parts = []
-        rs = []
-        for h in range(H):
-            dh = denom[:, h]
-            q = ct[h] / dh[:, None]
-            r = jnp.sum(ct[h] * ys[h], axis=-1) / dh
-            rs.append(r)
-            parts.append(q)
-            parts.append(-r[:, None])
-            if d_pad - d - 1 > 0:
-                parts.append(
-                    jnp.zeros((n_pad, d_pad - d - 1), jnp.float32)
-                )
-        Q = jnp.concatenate(parts, axis=-1)  # [n_pad, F] f32
-
-        # h~full (same construction as the forward; f32)
-        ones = jnp.ones((n_pad, 1), jnp.float32)
-        hparts = []
-        for hw in hws:
-            hparts.append(hw)
-            hparts.append(ones)
-            if d_pad - d - 1 > 0:
-                hparts.append(
-                    jnp.zeros((n_pad, d_pad - d - 1), jnp.float32)
-                )
-        hw_cat = jnp.concatenate(hparts, axis=-1)
-
-        x_sd = hw_cat if mdt is None else hw_cat.astype(mdt)
-        gw_bands = _weight_cotangent(
-            x_sd, Q, layout, "split", interpret, heads=H
-        )  # K x [mk, H] f32
-
-        # score chain entirely from residuals, per band: g_e = w * g_w *
-        # LReLU' (saved sign bits; no score recompute)
-        slope = jnp.float32(negative_slope)
-        g_bands = [
-            wb * gw[: wb.shape[0]] * jnp.where(pb, 1.0, slope)
-            for wb, gw, pb in zip(w_bands, gw_bands, pos_bands)
-        ]  # K x [mk, H] f32
-
-        # ds_dst straight off the pull bands — their segments are
-        # contiguous per band, so the per-dst f32 sums need NO sort
-        ds_dst = banded_heads_segment_sum(
-            layout, g_bands, g.max_in_degree
-        )  # [n_pad, H]
-
-        # ONE composite sort (round 5, replacing the round-5-early
-        # band->CSC->CSR->band chain of 4 salted sorts): the precomputed
-        # pull-band -> push-band rank moves w and g in one multi-payload
-        # sort.  Ghost/pad slots are zeroed first so they emerge as
-        # kernel no-ops in the push stream.
-        valid_flat = jnp.concatenate(list(dev["valid"]))[:, None]
-        wflat = jnp.where(valid_flat, jnp.concatenate(list(w_bands)), 0.0)
-        gflat = jnp.where(valid_flat, jnp.concatenate(g_bands), 0.0)
-        t_pull = wflat.shape[0]
-        n_comp = comp.shape[0]
-
-        def _pad_comp(c):
-            if n_comp == t_pull:
-                return c
-            return jnp.concatenate(
-                [c, jnp.zeros(n_comp - t_pull, c.dtype)]
-            )
-
-        cols = [_pad_comp(wflat[:, h]) for h in range(H)] + [
-            _pad_comp(gflat[:, h]) for h in range(H)
-        ]
-        outs = apply_fixed_perm(comp, *cols)
-        t_push = layout_b.total_padded
-        w_push = tuple(
-            layout_b._split_bands(jnp.stack(outs[:H], axis=-1)[:t_push])
-        )
-        g_push = list(
-            layout_b._split_bands(jnp.stack(outs[H:], axis=-1)[:t_push])
-        )
-
-        # ds_src straight off the push bands (segments = src)
-        ds_src = banded_heads_segment_sum(
-            layout_b, g_push, g.max_out_degree
-        )
-
-        # g_h~ = push-banded SpMM of Q with the saved weights
-        go_sd = Q if mdt is None else Q.astype(mdt)
-        gx = _apply_banded(
-            go_sd, layout_b, w_push, "split", interpret, heads=H
-        ).astype(jnp.float32)
-
-        g_hws = tuple(
-            gx[:, h * d_pad: h * d_pad + d] for h in range(H)
-        )
-        zeros_a = tuple(jnp.zeros_like(a) for a in a_src_l)
-        g_ss = tuple(ds_src[:, h] for h in range(H))
-        g_sd = tuple(ds_dst[:, h] for h in range(H))
-        return g_hws, zeros_a, g_ss, g_sd
-
-    f.defvjp(fwd, bwd)
-    if not traced:
-        _BANDED_VJP_CACHE[key] = f
-        while len(_BANDED_VJP_CACHE) > 32:  # LRU-ish (insertion order)
-            _BANDED_VJP_CACHE.pop(next(iter(_BANDED_VJP_CACHE)))
-    return f
-
-
-def _banded_layer_supported(
-    g, n_heads: int, d: int, force: bool, n_rows: int | None = None
-) -> bool:
-    """Static preconditions of `_gat_layer_banded` (mirrors its early
-    returns, INCLUDING the feature-row-count vs layout padding check —
-    ADVICE r4) so the custom_vjp wrapper is only entered when the banded
-    path will actually run; any mismatch falls back to the fused path
-    instead of tripping the wrapper's assert at trace time."""
-    import math
-
-    import jax as _jax
-
-    if _jax.default_backend() != "tpu" and not force:
-        return False
-    from mini_tpu.graph.banded import get_layout
-
-    step = 128 // math.gcd(n_heads, 128)
-    d_pad = -(-d // step) * step
-    if d_pad <= d:
-        return False
-    F = n_heads * d_pad
-    if F % 128 != 0:
-        return False
-    layout = get_layout(g, "pull", row_bytes=F * 4)
-    if layout is None or not layout.offsets:
-        return False
-    if n_rows is not None and n_rows != layout.n_pad:
-        return False
-    return True
 
 
 def gat_init(
@@ -555,55 +157,68 @@ def gat_init(
     return params
 
 
+def _gat_softmax_heads(
+    g: GraphSlice,
+    hws,
+    s_src_l,
+    s_dst_l,
+    negative_slope: float,
+    message_dtype,
+):
+    """Exact per-segment softmax (max-shifted, explicitly normalized per
+    edge), then one weighted SpMM for all heads."""
+    n_heads = len(hws)
+    e_src = src_vals_to_csc(g, *s_src_l)  # all heads ride one sort
+    if n_heads == 1:
+        e_src = (e_src,)
+    alphas = []
+    for hd in range(n_heads):
+        e = e_src[hd] + dst_vals_to_csc(g, s_dst_l[hd])
+        alphas.append(
+            segment_softmax_by_dst(g, jax.nn.leaky_relu(e, negative_slope))
+        )
+    hw_cat = jnp.concatenate(hws, axis=-1)
+    if message_dtype is not None:
+        hw_cat = hw_cat.astype(message_dtype)
+    alpha = alphas[0] if n_heads == 1 else jnp.stack(alphas, axis=-1)
+    out = spmm(
+        g, hw_cat, direction="pull", weights=alpha, heads=n_heads
+    ).astype(jnp.float32)
+    d = hws[0].shape[-1]
+    return tuple(out[:, hd * d: (hd + 1) * d] for hd in range(n_heads))
+
+
 def gat_forward(
     params: list[dict],
     g: GraphSlice,
     x: jnp.ndarray,
     negative_slope: float = 0.2,
     message_dtype=None,
-    batch_softmax: bool = False,
-    attn: str = "auto",
+    attn: str = "fused",
 ) -> jnp.ndarray:
     """``message_dtype=jnp.bfloat16`` casts the aggregated head features
-    to bf16 for the attention SpMM (single-pass MXU pipeline, ~1e-3
-    relative error — the training fast path; scores/softmax stay f32).
+    to bf16 for the attention SpMM (~1e-3 relative error — the training
+    fast path; scores/softmax stay f32).
 
     ``attn`` selects the attention-phase implementation:
 
-    * ``"banded"`` / ``"auto"`` on TPU (default, round 4): the
-      banded-native layer (:func:`_gat_layer_banded`) — scores, weights,
-      and messages all born in banded order from one set of band
-      gathers; no per-edge pass outside the gather+kernel pipeline.
-      TRAINABLE: a custom VJP re-derives cotangents through the fused
-      engine path (same function — see :func:`_make_banded_layer_fn`).
-      ``"auto"`` falls back to ``"fused"`` off-TPU, when no banded
-      layout exists, or when a head dim has no spare lane.
-    * ``"fused"``: engine-ops path without a per-segment softmax.
+    * ``"fused"`` (default): engine-ops path without a per-segment softmax.
       LeakyReLU is monotone, so the EXACT per-dst stabilizer
       ``max_u LRelu(s_src[u] + s_dst[v]) = LRelu(max_u s_src[u] + s_dst[v])``
       — and any upper bound of ``max_u s_src[u]`` keeps ``exp`` in
       (0, 1], so the GLOBAL max of the src scores (one vector reduce)
       replaces the per-segment max-scan + its edge expansion.  The
       softmax DENOMINATOR rides the aggregation SpMM as a ones-column in
-      each head's lane padding (out_v = [sum_u w h_u, sum_u w]), so the
+      each head's padding (out_v = [sum_u w h_u, sum_u w]), so the
       sum-scan, its expansion, and the per-edge divide collapse into one
       per-vertex divide.  Differentiable end-to-end — the training path.
       Numerics: the stabilizer shift cancels in the ratio; underflow
       only if a segment's scores sit > ~80 below the global max (f32).
-    * ``"softmax"``: the round-3 path (exact per-segment max + explicit
-      normalization), kept as the conservatively-stable variant and for
-      the ``segment_softmax_by_dst`` record.  (Measured wall f32 at
-      rmat16/H=2 on v5e: softmax 99.0, fused 105.3 — the fused path's
-      removed scans were hidden behind the SpMM gather by XLA's
-      scheduler, so banded is the perf path, fused the autodiff path.)
-
-    ``batch_softmax`` (softmax path only) runs the score/softmax phase
-    once over ``[m_pad, H]`` instead of per head.  Measured on v5e at
-    rmat16/H=2: ~27% SLOWER (lane-occupancy — the H axis wastes 126 of
-    128 lanes per vreg); kept for wide-H experiments.
+    * ``"softmax"``: exact per-segment max + explicit normalization
+      (:func:`segment_softmax_by_dst`), the conservatively-stable variant.
     """
-    import math
-
+    if attn not in ("fused", "softmax"):
+        raise ValueError(f"unknown attn {attn!r}")
     h = x
     n_layers = len(params)
     for i, layer in enumerate(params):
@@ -615,94 +230,14 @@ def gat_forward(
         ]
         s_src_l = [hws[hd] @ layer["a_src"][hd] for hd in range(n_heads)]
         s_dst_l = [hws[hd] @ layer["a_dst"][hd] for hd in range(n_heads)]
-
-        if attn in ("auto", "banded") and _banded_layer_supported(
-            g, n_heads, d, force=attn == "banded",
-            n_rows=hws[0].shape[0],
-        ):
-            fn = _make_banded_layer_fn(
-                g, d, negative_slope, message_dtype,
-                force=attn == "banded",
-            )
-            heads = fn(
-                tuple(hws),
-                tuple(layer["a_src"][hd] for hd in range(n_heads)),
-                tuple(s_src_l), tuple(s_dst_l),
-            )
-            if i < n_layers - 1:
-                h = jax.nn.elu(jnp.concatenate(heads, axis=-1))
-            else:
-                h = sum(heads) / len(heads)
-            continue
-
-        if attn in ("fused", "auto", "banded"):
+        if attn == "fused":
             heads = _gat_fused_heads(
-                g, hws, s_src_l, s_dst_l, d, negative_slope,
-                message_dtype,
+                g, hws, s_src_l, s_dst_l, d, negative_slope, message_dtype
             )
-            if i < n_layers - 1:
-                h = jax.nn.elu(jnp.concatenate(heads, axis=-1))
-            else:
-                h = sum(heads) / len(heads)
-            continue
-
-        # round-3 softmax path: all heads' src scores ride ONE
-        # permutation sort (multi-payload)
-        e_src = src_vals_to_csc(g, *s_src_l)
-        if n_heads == 1:
-            e_src = (e_src,)
-
-        if attn == "softmax":
-            if batch_softmax:
-                s_dst = jnp.stack(s_dst_l, axis=-1)
-                e = jnp.stack(e_src, axis=-1) + dst_vals_to_csc(g, s_dst)
-                e = jax.nn.leaky_relu(e, negative_slope)
-                alpha = segment_softmax_by_dst(g, e)  # [m_pad, H]
-            else:
-                alphas = []
-                for hd in range(n_heads):
-                    eh = e_src[hd] + dst_vals_to_csc(g, s_dst_l[hd])
-                    eh = jax.nn.leaky_relu(eh, negative_slope)
-                    alphas.append(segment_softmax_by_dst(g, eh))
-                alpha = jnp.stack(alphas, axis=-1)
         else:
-            raise ValueError(f"unknown attn {attn!r}")
-
-        # softmax weights are pre-normalized: a plain weighted SpMM
-        if n_heads == 1:
-            f = hws[0].shape[-1]
-            fp = -(-f // 128) * 128
-            hw_p = jnp.pad(hws[0], ((0, 0), (0, fp - f)))
-            if message_dtype is not None:
-                hw_p = hw_p.astype(message_dtype)
-            out = spmm(
-                g, hw_p, direction="pull", weights=alpha[:, 0]
-            ).astype(jnp.float32)
-            heads = [out[:, :f]]
-        else:
-            # batch ALL heads into one blockwise SpMM: each head's dim is
-            # padded so the concat is lane-aligned, one gather + one MXU
-            # kernel pass covers every head (was: one lane-padded SpMM per
-            # head, 75% MXU waste at d=32..64)
-            step = 128 // math.gcd(n_heads, 128)
-            d_pad = -(-d // step) * step
-            if d_pad != d:
-                hws_p = [
-                    jnp.pad(hw, ((0, 0), (0, d_pad - d))) for hw in hws
-                ]
-            else:
-                hws_p = hws
-            hw_cat = jnp.concatenate(hws_p, axis=-1)
-            if message_dtype is not None:
-                hw_cat = hw_cat.astype(message_dtype)
-            out = spmm(
-                g, hw_cat, direction="pull", weights=alpha,
-                heads=n_heads,
-            ).astype(jnp.float32)
-            heads = [
-                out[:, hd * d_pad: hd * d_pad + d]
-                for hd in range(n_heads)
-            ]
+            heads = _gat_softmax_heads(
+                g, hws, s_src_l, s_dst_l, negative_slope, message_dtype
+            )
         if i < n_layers - 1:
             h = jax.nn.elu(jnp.concatenate(heads, axis=-1))
         else:
@@ -769,7 +304,7 @@ def gat_forward_cpu(
 # ------------------------------------------------------------- training
 def gat_loss(
     params, g: GraphSlice, x, labels, label_mask,
-    negative_slope: float = 0.2, message_dtype=None, attn: str = "auto",
+    negative_slope: float = 0.2, message_dtype=None, attn: str = "fused",
 ) -> jnp.ndarray:
     """Masked softmax cross-entropy over labeled vertices (the
     `models/gcn.gcn_loss` contract on the GAT forward)."""
@@ -791,13 +326,10 @@ import functools as _functools
 )
 def gat_train_step(
     params, opt_state, g: GraphSlice, x, batch, lr: float = 1e-2,
-    negative_slope: float = 0.2, message_dtype=None, attn: str = "auto",
+    negative_slope: float = 0.2, message_dtype=None, attn: str = "fused",
 ):
-    """One SGD-with-momentum step on the GAT.  With ``attn="auto"`` on
-    TPU the forward runs the banded-native layer and the backward
-    re-derives cotangents through the fused engine path (the custom VJP,
-    :func:`_make_banded_layer_fn`); ``attn="fused"`` differentiates the
-    fused path directly (one program for fwd+bwd).  ``batch = (labels,
+    """One SGD-with-momentum step on the GAT: autodiff through
+    :func:`gat_forward` (one program for fwd+bwd).  ``batch = (labels,
     label_mask)``."""
     labels, label_mask = batch
     loss, grads = jax.value_and_grad(gat_loss)(

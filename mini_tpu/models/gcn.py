@@ -1,9 +1,8 @@
 """Graph Convolutional Network on the mini-tpu graph slice.
 
-The reference has no GNN — this is the BASELINE.json north-star
-generalization: "neighborhood-reduce generalized into SpMM ... that also
-powers GNN message passing over the same CSR/CSC gslice"
-(/root/repo/BASELINE.json, configs[4]).  Each layer computes
+The reference has no GNN — this generalizes its neighborhood-reduce into
+an SpMM that also powers GNN message passing over the same CSR/CSC gslice.
+Each layer computes
 
     H' = act( Â @ H @ W + b ),   Â = D̂^{-1/2} (A + I) D̂^{-1/2}
 
@@ -11,7 +10,7 @@ where the sparse product Â @ (H W) is the same SpMM operator the graph
 algorithms use (`mini_tpu.ops.spmm`): the off-diagonal part is a pull-SpMM
 with normalized edge weights, the self-loop diagonal is an elementwise
 rescale.  The dense H @ W runs first (cheaper when output width < input
-width) and lands on the MXU in bf16-friendly shapes.
+width).
 """
 
 from __future__ import annotations
@@ -31,57 +30,25 @@ from mini_tpu.ops.spmm import spmm
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass(frozen=True)
 class GCNNorm:
-    """Symmetric-normalized adjacency, split into sparse + diagonal parts.
-
-    ``banded_pull``/``banded_push`` are the normalized edge weights
-    pre-reordered into the banded SpMM layouts (graph/banded.py) — one
-    static-rank sort each at normalize time instead of per layer per step;
-    push order feeds the custom-vjp backward pass.  None when the graph
-    has no registered banded layout (raw GraphSlice).
-    """
+    """Symmetric-normalized adjacency, split into sparse + diagonal parts."""
 
     edge_weights_csc: jnp.ndarray  # float32[m_pad]
     self_coeff: jnp.ndarray  # float32[n_pad]: 1/deg_hat diagonal
-    banded_pull: tuple | None = None
-    banded_push: tuple | None = None
 
 
-def gcn_normalize(g: GraphSlice, band_for_f: int = 128) -> GCNNorm:
+def gcn_normalize(g: GraphSlice) -> GCNNorm:
     """Â = D̂^-1/2 (A + I) D̂^-1/2 with deg_hat = in_deg + 1.
 
     For undirected graphs in/out degrees coincide; for directed graphs this
     is the standard pull-aggregation normalization.
     """
-    from mini_tpu.graph.banded import get_layout
-    from mini_tpu.ops.permute import apply_fixed_perm
-
     real = jnp.arange(g.n_pad) < g.n
     deg_hat = jnp.where(real, g.in_degrees + 1, 1).astype(jnp.float32)
     inv_sqrt = jax.lax.rsqrt(deg_hat)
     w = inv_sqrt[g.csc_srcs] * inv_sqrt[g.csc_dsts]
     w = jnp.where(g.edge_mask_csc, w, 0.0)
     self_coeff = jnp.where(real, 1.0 / deg_hat, 0.0)
-
-    banded_pull = banded_push = None
-    row_bytes = band_for_f * 4
-    lp = get_layout(g, "pull", row_bytes=row_bytes)
-    lb = get_layout(g, "push", row_bytes=row_bytes)
-    if lp is not None:
-        banded_pull = tuple(lp.permute_to_bands(w))
-    if lb is not None:
-        # same per-edge values in CSR order (w is symmetric in src/dst
-        # only for undirected graphs, so map through the static rank)
-        inv = apply_fixed_perm(
-            g.csr_to_csc_rank, jnp.arange(g.m_pad, dtype=jnp.int32)
-        )
-        w_csr = apply_fixed_perm(inv, w)
-        banded_push = tuple(lb.permute_to_bands(w_csr))
-    return GCNNorm(
-        edge_weights_csc=w,
-        self_coeff=self_coeff,
-        banded_pull=banded_pull,
-        banded_push=banded_push,
-    )
+    return GCNNorm(edge_weights_csc=w, self_coeff=self_coeff)
 
 
 def gcn_init(
@@ -109,14 +76,13 @@ def gcn_forward(
     g: GraphSlice,
     norm: GCNNorm,
     x: jnp.ndarray,
-    impl: str = "auto",
     message_dtype=None,
 ) -> jnp.ndarray:
     """Forward pass; returns logits [n_pad, dims[-1]].
 
     ``message_dtype=jnp.bfloat16`` enables the fast aggregation path
-    (half-width gather + native MXU accumulation; ~1e-3 relative error —
-    fine for training, not for oracle comparisons).
+    (half-width gather and messages; ~1e-3 relative error — fine for
+    training, not for oracle comparisons).
     """
     h = x
     for i, layer in enumerate(params):
@@ -127,9 +93,6 @@ def gcn_forward(
             hw_msg,
             direction="pull",
             weights=norm.edge_weights_csc,
-            weights_banded=norm.banded_pull,
-            weights_banded_bwd=norm.banded_push,
-            impl=impl,
         ).astype(jnp.float32)
         h = agg + norm.self_coeff[:, None] * hw + layer["b"]
         if i < len(params) - 1:
@@ -138,13 +101,10 @@ def gcn_forward(
 
 
 def gcn_loss(
-    params, g, norm, x, labels, label_mask, impl: str = "auto",
-    message_dtype=None,
+    params, g, norm, x, labels, label_mask, message_dtype=None,
 ) -> jnp.ndarray:
     """Masked softmax cross-entropy over labeled vertices."""
-    logits = gcn_forward(
-        params, g, norm, x, impl=impl, message_dtype=message_dtype
-    )
+    logits = gcn_forward(params, g, norm, x, message_dtype=message_dtype)
     logp = jax.nn.log_softmax(logits, axis=-1)
     nll = -jnp.take_along_axis(logp, labels[:, None], axis=-1)[:, 0]
     nll = jnp.where(label_mask, nll, 0.0)
@@ -152,21 +112,19 @@ def gcn_loss(
 
 
 @functools.partial(
-    jax.jit, static_argnums=(6, 7, 8), donate_argnums=(0, 1)
+    jax.jit, static_argnums=(6, 7), donate_argnums=(0, 1)
 )
 def gcn_train_step(
     params, opt_state, g, norm, x, batch, lr: float = 1e-2,
-    impl: str = "auto", message_dtype=None,
+    message_dtype=None,
 ):
     """One SGD-with-momentum step (plain pytree optimizer; optax-compatible
     interfaces live one level up).  ``batch = (labels, label_mask)``.
-    ``impl``/``message_dtype`` select the aggregation path exactly as in
-    :func:`gcn_forward` (bf16 messages = the training fast path; the
-    banded custom VJP backward is sort-free: dx rides the
-    opposite-direction SpMM, dw the banded SDDMM — `ops/spmm.py`)."""
+    ``message_dtype`` selects the aggregation path exactly as in
+    :func:`gcn_forward` (bf16 messages = the training fast path)."""
     labels, label_mask = batch
     loss, grads = jax.value_and_grad(gcn_loss)(
-        params, g, norm, x, labels, label_mask, impl, message_dtype
+        params, g, norm, x, labels, label_mask, message_dtype
     )
     new_opt = jax.tree_util.tree_map(
         lambda m, dw: 0.9 * m + dw, opt_state, grads
@@ -185,8 +143,8 @@ def gcn_init_opt(params):
 def gcn_forward_cpu(
     params_np: list[dict], hg: HostGraph, x: np.ndarray
 ) -> np.ndarray:
-    """NumPy/scipy sparse oracle of the forward pass (allclose validation
-    per BASELINE.json north_star).  Sparse so --validate works at rmat16+
+    """NumPy/scipy sparse oracle of the forward pass (allclose
+    validation).  Sparse so --validate works at rmat16+
     (the earlier dense n x n adjacency needed 34 GB at n=65k); bitwise the
     same math: out[v] = sum_{(u,v)} d[u] d[v] h[u] + d[v]^2 h[v] with
     d = deg_hat^-1/2, deg_hat = in_deg + 1 (multi-edges keep multiplicity).

@@ -35,7 +35,7 @@ def sage_init(
 
 
 def sage_forward(
-    params: list[dict], g: GraphSlice, x: jnp.ndarray, impl: str = "auto"
+    params: list[dict], g: GraphSlice, x: jnp.ndarray
 ) -> jnp.ndarray:
     unit_w = jnp.where(g.edge_mask_csc, 1.0, 0.0).astype(jnp.float32)
     inv_deg = jnp.where(
@@ -43,7 +43,7 @@ def sage_forward(
     )
     h = x
     for i, layer in enumerate(params):
-        agg = spmm(g, h, direction="pull", weights=unit_w, impl=impl)
+        agg = spmm(g, h, direction="pull", weights=unit_w)
         agg = agg * inv_deg[:, None]
         h = jnp.dot(
             jnp.concatenate([h, agg], axis=-1),
@@ -75,11 +75,11 @@ def sage_forward_cpu(
 
 # ------------------------------------------------------------- training
 def sage_loss(
-    params, g: GraphSlice, x, labels, label_mask, impl: str = "auto"
+    params, g: GraphSlice, x, labels, label_mask
 ) -> jnp.ndarray:
     """Masked softmax cross-entropy over labeled vertices (the
     `models/gcn.gcn_loss` contract on the SAGE forward)."""
-    logits = sage_forward(params, g, x, impl=impl)
+    logits = sage_forward(params, g, x)
     logp = jax.nn.log_softmax(logits, axis=-1)
     nll = -jnp.take_along_axis(logp, labels[:, None], axis=-1)[:, 0]
     nll = jnp.where(label_mask, nll, 0.0)
@@ -90,17 +90,16 @@ import functools as _functools
 
 
 @_functools.partial(
-    jax.jit, static_argnums=(5, 6), donate_argnums=(0, 1)
+    jax.jit, static_argnums=(5,), donate_argnums=(0, 1)
 )
 def sage_train_step(
     params, opt_state, g: GraphSlice, x, batch, lr: float = 1e-2,
-    impl: str = "auto",
 ):
     """One SGD-with-momentum step (same optimizer contract as
     `models/gcn.gcn_train_step`); ``batch = (labels, label_mask)``."""
     labels, label_mask = batch
     loss, grads = jax.value_and_grad(sage_loss)(
-        params, g, x, labels, label_mask, impl
+        params, g, x, labels, label_mask
     )
     new_opt = jax.tree_util.tree_map(
         lambda m, dw: 0.9 * m + dw, opt_state, grads

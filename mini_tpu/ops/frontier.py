@@ -3,7 +3,7 @@
 The reference's ``frontier_t<T>`` (`/root/reference/gunrock/src/frontier.hxx:13-99`)
 is a fixed-capacity device index vector with logical resize (hard exit on
 overflow) plus sparse<->dense converters bolted onto advance
-(`advance.hxx:70-106`).  On TPU the dense bitmap is the *primary*
+(`advance.hxx:70-106`).  Here the dense bitmap is the *primary*
 representation — fixed shape, jit-friendly, and duplicate-free by
 construction (which subsumes the reference's heuristic warp/history-hash
 uniquify culls, `filter.hxx:33-119`).  The compact form is a bounded index
@@ -56,10 +56,10 @@ class Frontier:
         ``count`` are filled with -1 (the reference uses -1 holes too,
         `advance.hxx:60`); ``overflowed`` is True when the true population
         exceeded ``capacity`` (the reference hard-exits on frontier
-        overflow, `frontier.hxx:85-93` — on TPU the flag is on-device and
-        the caller decides).  Masked compaction: cumsum of mask + scatter —
-        the TPU analogue of moderngpu's ``transform_compact``
-        upsweep/downsweep (`filter.hxx:18-30`).
+        overflow, `frontier.hxx:85-93` — here the flag is on-device and
+        the caller decides).  Masked compaction in the role of
+        moderngpu's ``transform_compact`` upsweep/downsweep
+        (`filter.hxx:18-30`), by ``lax.top_k`` (see ``compact_mask``).
         """
         return compact_mask(self.mask, capacity)
 
@@ -81,9 +81,7 @@ def compact_mask(
     frontier exits the process instead, `frontier.hxx:85-93`).
     """
     # top_k over position-coded values: the k largest ARE the k smallest
-    # set positions (round 5 — replaces the cumsum + n-sized scatter,
-    # whose ~10 ns/update was the per-round floor of every high-diameter
-    # traversal; 5.19 -> 1.01 ms at n=524k, scratch/probe_compact.py)
+    # set positions (in place of a cumsum + n-sized scatter)
     import jax
 
     n = mask.shape[0]
@@ -101,7 +99,7 @@ def uniquify(indices: jnp.ndarray, n_pad: int, capacity: int | None = None):
 
     Replaces the reference's three heuristic culls (bitmask/warp-hash/
     history-hash, `filter.hxx:33-119`) with exact, deterministic dedup —
-    those culls are GPU shared-memory artifacts; on TPU the bitmap is cheap.
+    those culls bound shared-memory work; the bitmap makes dedup exact.
     Negative indices (holes) are dropped.  Returns (indices, count,
     overflowed) — see ``compact_mask``.
     """

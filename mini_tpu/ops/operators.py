@@ -23,8 +23,8 @@ edge array when the reduction is keyed by destination (segment ids must be
 sorted) and over the CSR-ordered array when keyed by source.
 
 Per-edge functors are plain Python callables taking an ``EdgeView`` and
-returning arrays over edges; they trace into the jitted sweep — the TPU
-analogue of the reference's ``--expt-extended-lambda`` device functors.
+returning arrays over edges; they trace into the jitted sweep — in the role
+of the reference's ``--expt-extended-lambda`` device functors.
 """
 
 from __future__ import annotations

@@ -1,9 +1,8 @@
 """Gather/scatter-free edge-data movement primitives.
 
-Measured on TPU v5e (see BENCH_DETAILS.json history): XLA gather/scatter on
-TPU costs ~7-8 ns *per element* regardless of width (scalar-loop lowering),
-i.e. ~14 ms for one 2M-edge gather — two orders of magnitude off roofline.
-These primitives move per-edge data at vector speed instead:
+These primitives move per-edge data with sorts, scans and n-sized scatters
+instead of m-sized random gathers.  (Whether that beats a plain gather on
+a GPU is an open measurement; see ROADMAP.md.)
 
 * ``expand_to_edges``: broadcast per-vertex values to their (contiguous,
   sorted) edge segments via a bitcast-int32 boundary-delta + wrapping cumsum
@@ -11,9 +10,8 @@ These primitives move per-edge data at vector speed instead:
   2^32, so even float bit patterns reconstruct bit-exactly).  This replaces
   gathers whose indices are the sorted segment ids.
 * ``apply_fixed_perm``: apply a precomputed permutation (e.g. CSR->CSC edge
-  order) with ONE ``lax.sort`` keyed by the static destination rank
-  (~2.8 ms for 2M edges vs ~14 ms for the equivalent gather).  Replaces
-  gathers whose indices are an arbitrary-but-static permutation.
+  order) with ONE ``lax.sort`` keyed by the static destination rank.
+  Replaces gathers whose indices are an arbitrary-but-static permutation.
 
 Random *dynamic* gathers never appear in the frontier engine: any per-edge
 value is either keyed by the sorted axis (expansion) or carried across the
@@ -39,9 +37,8 @@ def expand_to_edges(
     vectorized.  Empty segments contribute coincident deltas which
     scatter-add combines correctly.
 
-    Trailing dims (e.g. a head axis) batch through the same delta/cumsum:
-    up to the 128-lane width they ride the VPU essentially for free, so
-    expanding K channels at once costs ~1 expansion, not K.
+    Trailing dims (e.g. a head axis) batch through the same delta/cumsum,
+    so K channels share one expansion.
     """
     dtype = vertex_vals.dtype
     bits = jax.lax.bitcast_convert_type(vertex_vals, jnp.int32)
@@ -61,17 +58,14 @@ def apply_fixed_perm(
 ):
     """Return payloads permuted so output[rank[i]] = payload[i].
 
-    Implemented as one multi-payload ``lax.sort`` on the static rank key —
-    the TPU sort is fully vectorized, unlike gather/scatter.
+    Implemented as one multi-payload ``lax.sort`` on the static rank key.
 
     Float payloads route through a custom VJP (a permutation's transpose
     is its inverse permutation — one iota sort to build it, one sort to
-    apply): native autodiff of ``lax.sort`` lowers its reverse pass to an
-    m-sized scatter AND crashes the TPU toolchain outright (round 5: the
-    algebraic simplifier cycle-checks fail on the jvp'd sort).  ``rank``
-    must be a true permutation of [0, m) — every production rank array
-    (csr/csc switch ranks, banded layout ranks over the padded domain)
-    is.
+    apply), so the reverse pass is a sort and not the m-sized scatter that
+    native autodiff of ``lax.sort`` produces.  ``rank`` must be a true
+    permutation of [0, m) — every production rank array (the csr/csc
+    switch ranks over the padded domain) is.
     """
     if payloads and all(
         jnp.issubdtype(p.dtype, jnp.floating) for p in payloads
@@ -85,19 +79,17 @@ _sort_salt_counter = [0]
 
 
 def _apply_fixed_perm_raw(rank, *payloads):
-    # Per-call KEY SALT: XLA's TPU algebraic simplifier MERGES sorts that
+    # Per-call KEY SALT: XLA's algebraic simplifier may MERGE sorts that
     # share a key into one multi-operand sort; when one such sort's
     # output transitively feeds another (layer-chained CSR<->CSC switches
-    # in a training graph, through the banded kernel), the merge creates
-    # a cyclic HLO and the compiler CHECK-crashes (round-5 measurement:
-    # SIGABRT, "A cycle is detected", in algebraic_simplifier.cc on the
-    # fused-GAT grad).  optimization_barrier on key or payloads does NOT
+    # in a training graph), the merge can create a cyclic HLO that the
+    # compiler rejects.  optimization_barrier on key or payloads does not
     # stop it (barriers are CSE'd/looked through).  Adding a distinct
     # small constant per traced call keeps the sort result bitwise
     # identical (a monotone shift of a permutation key) while making the
     # key VALUES unequal, so no two sorts are merge candidates.  Cost:
-    # one [m] int vector add per sort (~us).  The %64 window only needs
-    # to separate sorts that could appear in ONE compiled program.
+    # one [m] int vector add per sort.  The %64 window only needs to
+    # separate sorts that could appear in ONE compiled program.
     salt = _sort_salt_counter[0] % 64
     _sort_salt_counter[0] += 1
     if salt:
@@ -170,9 +162,8 @@ def segmented_scan_reduce(
 ) -> jnp.ndarray:
     """Segmented min/max/sum over contiguous sorted segments via a
     Hillis-Steele segmented scan (log2(max segment length) shifted-combine
-    steps — plain vector ops, unlike `lax.associative_scan`, whose recursive
-    lowering chokes the TPU remote compiler), then a take at segment ends.
-    No scatter; deterministic.
+    steps of plain vector ops), then a take at segment ends.  No scatter;
+    deterministic.
 
     ``max_seg_len`` (static) bounds the scan depth — pass the graph's max
     degree to cut steps from log2(m) to log2(max_deg).
@@ -190,8 +181,7 @@ def segmented_scan_reduce(
     m = vals.shape[0]
     if max_seg_len is None or max_seg_len > m:
         # a contiguous segment cannot exceed the stream itself; an
-        # uncapped bound would shift by d >= m and break the concat
-        # shapes (hit by short per-band streams, round 5)
+        # uncapped bound would shift by d >= m and break the concat shapes
         max_seg_len = m
     x = vals
     tail = vals.shape[1:]

@@ -1,13 +1,13 @@
-"""Deterministic segmented reductions — the TPU replacement for atomics.
+"""Deterministic segmented reductions in place of atomics.
 
 The reference resolves concurrent per-destination updates with
 atomicCAS/atomicMin/atomicAdd (`/root/reference/gunrock/src/intrinsics.hxx:12-22`,
 `bfs/bfs_functor.hxx:32`, `kcore/kcore_functor.hxx:34`) and folds neighbor
-values with moderngpu's ``lbs_segreduce`` (`neighborhood.hxx:58`).  On TPU
-neither atomics nor CTA-level load balancing exist; both roles collapse into
-one primitive: a segmented reduction over an edge array whose segment ids are
-*sorted* (CSR order sorts by src, CSC order by dst).  Sorted segment ids make
-the reduction deterministic and let XLA lower it efficiently.
+values with moderngpu's ``lbs_segreduce`` (`neighborhood.hxx:58`).  Here
+both roles collapse into one primitive: a segmented reduction over an edge
+array whose segment ids are *sorted* (CSR order sorts by src, CSC order by
+dst).  Sorted segment ids make the result independent of thread scheduling
+for integer and min/max reductions, and let XLA lower it efficiently.
 
 Everything here is shape-static and jit-safe.
 """
@@ -46,7 +46,7 @@ def contiguous_segment_sum(
 
     One cumsum + two gathers — no scatter at all (the reference needs
     moderngpu's two-phase compact/segreduce for this; CSC/CSR ordering makes
-    it a prefix-sum difference on TPU).  Exact for integer/bool inputs; for
+    it a prefix-sum difference).  Exact for integer/bool inputs; for
     floats the cumsum accumulates over the whole array, so only use where
     that precision is acceptable.
     """

@@ -1,7 +1,7 @@
 """Segmented sort — the reusable form of moderngpu's ``segmented_sort``
 (`/root/reference/gunrock/src/lspar/lspar_enactor.hxx:85`).
 
-On TPU a per-segment sort is ONE global stable sort keyed by
+A per-segment sort is ONE global stable sort keyed by
 (segment id, key): segments are contiguous, so composite-key ordering sorts
 within each segment without ever materializing per-segment work lists.
 """

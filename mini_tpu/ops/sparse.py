@@ -2,7 +2,7 @@
 
 The dense engine sweeps all m edges per iteration — right for large
 frontiers, wasteful for tiny ones (high-diameter graphs pay diameter x m).
-This is the TPU re-expression of the reference's load-balanced sparse
+This re-expresses the reference's load-balanced sparse
 advance (`/root/reference/gunrock/src/advance.hxx:21-67`): the degree scan +
 ``transform_lbs`` merge-path search becomes an exclusive cumsum + a
 vectorized ``searchsorted`` over a *static-capacity* edge slot array, so the
@@ -32,17 +32,16 @@ def default_tiers(
     actual frontier, so several tiers let tiny frontiers (high-diameter
     graphs) pay tiny sweeps while mid-size frontiers still beat the dense
     O(m) sweep.  Tiers top out around m/16 — beyond that the dense engine
-    wins (a cape-sized sparse step costs ~10x more per element than the
-    dense sweep's vectorized path).
+    wins (a sparse step pays random gathers per element, the dense sweep
+    streams).
     """
     if max_cape is None:
         max_cape = max(2048, g.m_pad // 64)
     if max_capv is None:
         max_capv = min(g.n_pad, max_cape)
     # ONE sparse tier: every extra lax.switch branch is a separately
-    # compiled loop body, and compile time through the remote toolchain
-    # dwarfs the runtime difference between tier sizes (measured: 1 extra
-    # tier ~= +60 s compile; tier-size runtime delta ~= 0.5 ms/iter)
+    # compiled loop body, and its compile time outweighs the runtime
+    # difference between tier sizes
     cape = min(max_cape, g.m_pad)
     return [(min(max_capv, cape, g.n_pad), cape)]
 
@@ -63,11 +62,9 @@ def compact_frontier(mask: jnp.ndarray, capv: int):
     on those paths the flag is statically False — direct callers must
     check it (the reference hard-exits instead, `frontier.hxx:85-93`).
 
-    Mechanism (round 5): ``lax.top_k`` over position-coded mask values —
-    the k largest values ARE the k smallest set positions.  Replaces the
-    cumsum + n-sized scatter, which at ~10 ns/update was THE per-round
-    floor of every high-diameter traversal (measured 5.19 ms vs top_k's
-    1.01 ms at n=524k, `scratch/probe_compact.py`)."""
+    Mechanism: ``lax.top_k`` over position-coded mask values — the k
+    largest values ARE the k smallest set positions (in place of a
+    cumsum + n-sized scatter)."""
     n = mask.shape[0]
     count = jnp.sum(mask.astype(jnp.int32))
     vals = jnp.where(
@@ -90,14 +87,13 @@ def relax_and_chain(
 ):
     """One fused sparse SSSP round: expand+relax the compact frontier
     AND derive the next compact frontier from the same cape-sized
-    arrays — indices->indices, no bitmap round-trip (round 5 "compact
+    arrays — indices->indices, no bitmap round-trip ("compact
     chaining").
 
-    The measured ~3 ms/round floor of a bitmap sparse round at n=524k
-    is the O(n) bitmap ``top_k`` + fe/fl scans; chaining replaces them
-    with O(cape) work.  The chained round itself is gather-bound
-    (~0.1 us/slot aggregate in the first cut), so this fused form keeps
-    the big-table random accesses to the essential four — ``csr_dsts``
+    A bitmap sparse round pays O(n) for the bitmap ``top_k`` and the
+    fe/fl scans; chaining replaces them with O(cape) work.  The chained
+    round itself is gather-bound, so this fused form keeps the
+    big-table random accesses to the essential four — ``csr_dsts``
     and ``weights`` at eid, ``dist`` at src, ``dist`` at the deduped
     dsts: row offsets/degrees broadcast from the capv-sized frontier
     table, and the improved-dst detection rides a TWO-KEY sort
@@ -201,8 +197,7 @@ def default_chain_cap(g: GraphSlice, sparse_cape: int) -> int:
     back to an O(n)-floor bitmap round.  Light-edge reentry frontiers
     on the target family (grids, meshes) are far smaller than the
     bitmap tier's m/64; the default sits a factor 4 below it, floored
-    at 4096 to amortize fixed per-op overheads (measured sweep:
-    BASELINE.md round-5 chaining table)."""
+    at 4096 to amortize fixed per-op overheads."""
     return int(min(sparse_cape, max(4096, g.m_pad // 256)))
 
 

@@ -3,33 +3,22 @@ neighborhood-reduce (cf. `/root/reference/gunrock/src/neighborhood.hxx:13-70`,
 whose scalar ``Value`` reduce is the F=1 special case), powering both
 PageRank-style rank aggregation and GNN message passing.
 
-Implementations:
-
-* ``xla``: gather + sorted segment-sum.  Simple, differentiable, slow on
-  TPU (a >16 MB-table row gather costs ~10 ns/row).
-* ``banded`` (default on TPU): K fast band gathers (tables <= 16 MB each,
-  ~3 ns/row) + the staircase one-hot Pallas MXU kernel
-  (ops/pallas/spmm_banded.py) over the statically re-grouped edge streams
-  (graph/banded.py).  Differentiable in ``x`` (the backward pass is the
-  opposite-direction banded SpMM) AND in the edge weights (the weight
-  cotangent is the banded SDDMM kernel: dw[e] = <go[dst e], x[src e]>).
-* ``pallas_onehot``: the round-1 kernel (gather + dst-id one-hot matmul),
-  kept for comparison benchmarks.
-
-Both compute, for direction="pull":
+Both are gather + sorted segment reduce in plain XLA, differentiable by
+autodiff.  For direction="pull":
     out[v, :] = sum_{e=(u,v) in E} w[e] * X[u, :]
 and for direction="push":
     out[u, :] = sum_{e=(u,v) in E} w[e] * X[v, :]
+The m x F message stream ``X[gather ids] * w`` is not materialized on an
+H100: XLA fuses the gather and scale into the scatter-add (the compiled
+pull SpMM at F=128 on 134M edges needs no temporary buffer).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional
 
-import jax
 import jax.numpy as jnp
 
-from mini_tpu.graph.banded import BandedLayout, get_layout
 from mini_tpu.graph.csr import GraphSlice
 from mini_tpu.ops.segment import segment_reduce
 
@@ -40,19 +29,12 @@ def spmm(
     direction: str = "pull",
     weights: Optional[jnp.ndarray] = None,
     op: str = "sum",
-    impl: str = "auto",
-    weights_banded: Optional[Sequence[jnp.ndarray]] = None,
-    weights_banded_bwd: Optional[Sequence[jnp.ndarray]] = None,
-    precision: str = "auto",
-    interpret: bool = False,
     heads: int = 1,
 ) -> jnp.ndarray:
     """Sparse (adjacency) times dense (features): [n_pad, F] -> [n_pad, F].
 
     ``weights`` overrides the graph's edge weights; it must be in the edge
     order of the chosen direction (CSC for pull, CSR for push).
-    ``weights_banded`` (a K-tuple in the banded layout's order, e.g. from
-    ``BandedLayout.permute_to_bands``) skips the per-call reorder sort.
 
     ``heads > 1`` is the blockwise multi-head form (GAT): x is the head
     CONCAT [n_pad, H*d], weights is [m_pad, H], and head h's feature block
@@ -60,32 +42,15 @@ def spmm(
 
         out[v, h*d:(h+1)*d] = sum_e w[e, h] * x[src e, h*d:(h+1)*d]
 
-    — so all heads ride ONE gather + ONE MXU kernel pass instead of H.
+    — so all heads ride one gather and one segment reduce instead of H.
     """
     if x.ndim == 1:
         return spmm(
             g, x[:, None], direction=direction, weights=weights, op=op,
-            impl=impl, weights_banded=weights_banded,
-            weights_banded_bwd=weights_banded_bwd, precision=precision,
-            interpret=interpret,
         )[:, 0]
     if heads > 1:
         assert weights is not None and weights.ndim == 2
         assert x.shape[-1] % heads == 0
-
-    if impl == "auto":
-        impl = "banded" if (op == "sum" and _banded_ok(g, x)) else "xla"
-    if impl == "pallas":  # round-2 alias
-        impl = "banded"
-
-    if impl == "banded" and op == "sum":
-        out = _spmm_banded(
-            g, x, direction, weights, weights_banded, precision,
-            interpret, weights_banded_bwd=weights_banded_bwd, heads=heads,
-        )
-        if out is not None:
-            return out
-        impl = "xla"  # no layout (raw GraphSlice) — graceful fallback
 
     if direction == "pull":
         seg, gather_ids = g.csc_dsts, g.csc_srcs
@@ -98,14 +63,6 @@ def spmm(
     else:
         raise ValueError(f"unknown direction {direction!r}")
 
-    if impl == "pallas_onehot":
-        if op == "sum" and heads == 1 and _shapes_ok(g, x):
-            from mini_tpu.ops.pallas.spmm_kernel import spmm_pallas
-
-            offsets = g.col_offsets if direction == "pull" else g.row_offsets
-            return spmm_pallas(offsets, gather_ids, w, x, seg_ids=seg)
-        impl = "xla"
-
     if heads > 1:
         m, F = gather_ids.shape[0], x.shape[-1]
         msgs = (
@@ -117,364 +74,19 @@ def spmm(
     return segment_reduce(msgs, seg, g.n_pad, op, mask=mask[:, None])
 
 
-# -- banded path -------------------------------------------------------------
-
-_DIFF_CACHE: dict = {}
-
-
-def _apply_banded(x, layout: BandedLayout, w_list, precision, interpret,
-                  heads: int = 1):
-    """Band gathers + staircase kernel.  w_list: K arrays in banded order
-    ([mk] scalars, or [mk, H] per-head columns scaling F//H blocks).
-
-    Precision modes (measured on v5e, rmat16 2M edges x F=128, in-loop):
-
-    * bf16 input: native single-pass pipeline (~7.7 ms).
-    * ``fast``: truncate f32 x (and w) to bf16 and take the native
-      pipeline (~7.7 ms, ~2e-3 magnitude-relative error).
-    * ``split`` (f32 default): f32 gather, hi/lo split inside the kernel
-      (~21 ms, ~1e-5 error).  Works for arbitrary weights.
-    * ``highest``: f32 gather + 6-pass MXU f32 emulation (~22 ms).
-    """
-    from mini_tpu.ops.pallas.spmm_banded import banded_segment_sum
-    from mini_tpu.utils.profiling import scope
-
-    dev = layout.dev()
-
-    def band_slice(k):
-        lo = k * layout.band_rows
-        hi = min(lo + layout.band_rows, layout.n_pad)
-        return lo, hi
-
-    if precision == "fast" and x.dtype == jnp.float32:
-        x = x.astype(jnp.bfloat16)
-
-    if x.dtype == jnp.bfloat16 or precision in ("split", "highest"):
-        F = x.shape[-1]
-        msgs = []
-        for k in range(layout.K):
-            lo, hi = band_slice(k)
-            with scope(f"spmm.band_gather_{k}"):
-                xg = x[lo:hi][dev["ids"][k]]
-                w = w_list[k]
-                if heads > 1:
-                    mk = xg.shape[0]
-                    xg = (
-                        xg.reshape(mk, heads, F // heads)
-                        * w[:, :, None].astype(x.dtype)
-                    ).reshape(mk, F)
-                else:
-                    xg = xg * w[:, None].astype(x.dtype)
-            msgs.append(xg)
-        with scope("spmm.banded_kernel"):
-            return banded_segment_sum(
-                dev["bounds"], dev["offs2d"], msgs, precision=precision,
-                interpret=interpret, edge_chunk=layout.edge_chunk,
-            )
-
-    # NOTE a split-BEFORE-gather variant (hi/lo bf16 halves, 2K streams)
-    # was built and measured 2026-08-19: in isolation its parts win
-    # (2x bf16 gathers 10.3 ms + 6-stream kernel 7.1 < f32 pipeline), but
-    # composed it lost to "split" (26-41 ms vs 20.7) — XLA materialization
-    # and scheduling overheads between the gathers and the pallas_call eat
-    # the gain.  Retired; see scratch history in BASELINE.md.
-    raise ValueError(f"unknown precision {precision!r} for {x.dtype}")
-
-
-def _gather_bands(x, layout: BandedLayout, precision):
-    """The K unweighted band gathers (the fwd's message gathers minus the
-    weight multiply), with the same precision-driven dtype as the fwd."""
-    dev = layout.dev()
-    if precision == "fast" and x.dtype == jnp.float32:
-        x = x.astype(jnp.bfloat16)
-    out = []
-    for k in range(layout.K):
-        lo = k * layout.band_rows
-        hi = min(lo + layout.band_rows, layout.n_pad)
-        out.append(x[lo:hi][dev["ids"][k]])
-    return out
-
-
-def _weight_cotangent(x, go, layout: BandedLayout, precision, interpret,
-                      heads: int = 1):
-    """dw[e] = <go[dst e], x_band[ids e]> per banded slot, via the banded
-    SDDMM kernel; returns the K-tuple matching the fwd's w_f structure
-    ([mk] scalars, or [mk, H] with one SDDMM pass per head block)."""
-    from mini_tpu.ops.pallas.spmm_banded import banded_sddmm
-
-    dev = layout.dev()
-    msgs = _gather_bands(x, layout, precision)
-    prec = precision if precision != "fast" else "split"
-
-    def run(block_msgs, y):
-        flat = banded_sddmm(
-            dev["bounds"], dev["offs2d"], block_msgs, y,
-            precision=prec, interpret=interpret,
-            edge_chunk=layout.edge_chunk,
-        )
-        out, pos = [], 0
-        for m in block_msgs:
-            out.append(flat[pos: pos + m.shape[0]])
-            pos += int(m.shape[0])
-        return out
-
-    if heads == 1:
-        return tuple(run(msgs, go))
-
-    F = x.shape[-1]
-    d = F // heads
-    d_pad = ((d + 127) // 128) * 128
-
-    def pad_cols(a):
-        if a.shape[-1] == d_pad:
-            return a
-        return jnp.concatenate(
-            [a, jnp.zeros((a.shape[0], d_pad - a.shape[-1]), a.dtype)],
-            axis=-1,
-        )
-
-    per_head = []
-    for h in range(heads):
-        blk = [pad_cols(m[:, h * d: (h + 1) * d]) for m in msgs]
-        per_head.append(run(blk, pad_cols(go[:, h * d: (h + 1) * d])))
-    return tuple(
-        jnp.stack([per_head[h][k] for h in range(heads)], axis=1)
-        for k in range(layout.K)
-    )
-
-
-def banded_heads_segment_sum(
-    layout: BandedLayout,
-    bands: Sequence[jnp.ndarray],  # K x [mk, H] f32, this layout's order
-    max_seg_len: int,
-) -> jnp.ndarray:
-    """Per-segment f32 sums of banded per-edge columns -> [n_pad, H].
-
-    Each band's stream is segment-contiguous (``layout.offsets[k]``), so
-    the reduce is the engine's Hillis-Steele segmented scan run per band
-    and summed across bands — NO permute sort (round 5: lets the GAT
-    native backward take ds_dst straight off the pull bands and ds_src
-    straight off the composite-permuted push bands).  Band pad slots
-    carry zeros and lie past the last segment end, so they never
-    contribute.  ``max_seg_len`` bounds the scan depth (in-degree for
-    pull layouts, out-degree for push)."""
-    from mini_tpu.ops.permute import expand_to_edges, segmented_scan_reduce
-
-    dev = layout.dev()
-    n_pad = layout.n_pad
-    seg_src = jnp.arange(n_pad, dtype=jnp.int32)
-    out = None
-    for k, b in enumerate(bands):
-        off = dev["offsets"][k]
-        seg = expand_to_edges(seg_src, off, b.shape[0])
-        r = segmented_scan_reduce(
-            b, seg, off, "sum", jnp.float32(0.0), max_seg_len=max_seg_len
-        )
-        out = r if out is None else out + r
-    return out
-
-
-def _make_diff_fn(layout_f: BandedLayout, layout_b, precision, interpret,
-                  heads: int = 1):
-    """custom_vjp wrapper: d/dx of a pull-SpMM is the push-SpMM of the
-    cotangent with the same per-edge weights (and vice versa), and d/dw is
-    the banded SDDMM of (cotangent, x) — both ride the banded fast path.
-    ``w_b`` (the opposite-direction copy of the weights) does not enter the
-    forward value, so its cotangent is exactly zero.  Layout index arrays
-    are closed over as constants (they are never traced); only float inputs
-    are vjp arguments."""
-    key = (id(layout_f), id(layout_b), precision, interpret, heads)
-    if key in _DIFF_CACHE:
-        return _DIFF_CACHE[key]
-
-    @jax.custom_vjp
-    def f(x, w_f, w_b):
-        return _apply_banded(x, layout_f, w_f, precision, interpret, heads)
-
-    def fwd(x, w_f, w_b):
-        return f(x, w_f, w_b), (x, w_f, w_b)
-
-    def bwd(res, go):
-        x, w_f, w_b = res
-        if layout_b is None:
-            raise NotImplementedError(
-                "backward banded SpMM needs the opposite-direction layout"
-            )
-        gx = _apply_banded(go, layout_b, w_b, precision, interpret, heads)
-        dw_f = _weight_cotangent(
-            x, go, layout_f, precision, interpret, heads
-        )
-        dw_f = tuple(
-            d.astype(w.dtype) for d, w in zip(dw_f, w_f)
-        )
-        zb = tuple(jnp.zeros_like(w) for w in w_b)
-        return gx.astype(x.dtype), dw_f, zb
-
-    f.defvjp(fwd, bwd)
-    _DIFF_CACHE[key] = f
-    return f
-
-
-def _spmm_banded(
-    g, x, direction, weights, weights_banded, precision, interpret,
-    weights_banded_bwd=None, heads: int = 1,
-):
-    if heads > 1 and (weights is None and weights_banded is None):
-        return None  # blockwise form needs per-head weights
-    if x.shape[-1] % 128 != 0:
-        if heads > 1:
-            # blockwise padding must be per head block — the caller (GAT)
-            # pads each head's dim so the concat is lane-aligned
-            return None
-        # pad features to the lane width: the gather is row-count-bound,
-        # so a padded banded SpMM still beats the XLA fallback
-        F = x.shape[-1]
-        F_pad = ((F + 127) // 128) * 128
-        xp = jnp.concatenate(
-            [x, jnp.zeros((x.shape[0], F_pad - F), x.dtype)], axis=1
-        )
-        out = _spmm_banded(
-            g, xp, direction, weights, weights_banded, precision,
-            interpret, weights_banded_bwd=weights_banded_bwd,
-        )
-        return None if out is None else out[:, :F]
-    # band sizing is dtype-independent (always f32 row bytes) so that one
-    # layout — and any pre-banded weights built on it — serves both the
-    # f32 and bf16 message paths of the same F.
-    row_bytes = x.shape[-1] * 4
-    layout = get_layout(g, direction, row_bytes=row_bytes)
-    if layout is None or x.shape[0] != layout.n_pad:
-        return None
-    if weights_banded is not None and (
-        len(weights_banded) != layout.K
-        or any(
-            int(w.shape[0]) != len(i)
-            for w, i in zip(weights_banded, layout.ids)
-        )
-    ):
-        # pre-banded weights were built for a different layout (e.g. a
-        # different F): fall back to the raw override
-        weights_banded = None
-        weights_banded_bwd = None
-        if weights is None:
-            return None
-    opposite = "push" if direction == "pull" else "pull"
-    layout_b = get_layout(g, opposite, row_bytes=row_bytes)
-
-    if precision == "auto":
-        precision = "split"  # accurate default; bf16 input stays native
-
-    from mini_tpu.ops.permute import apply_fixed_perm
-
-    def band_cols(lay, w):
-        """Banded per-band weights: [mk] scalars or [mk, H] columns (all
-        heads ride ONE multi-payload sort)."""
-        if heads == 1:
-            return tuple(lay.permute_to_bands(w))
-        return tuple(
-            lay.permute_to_bands_multi(*[w[:, h] for h in range(heads)])
-        )
-
-    if weights_banded is not None:
-        w_f = tuple(weights_banded)
-        if weights_banded_bwd is not None:
-            w_b = tuple(weights_banded_bwd)
-        else:
-            w_b = w_f
-            layout_b = None  # bwd order unknown for pre-banded overrides
-    elif weights is not None:
-        mask = g.edge_mask_csc if direction == "pull" else g.edge_mask
-        w = jnp.where(
-            mask[:, None] if heads > 1 else mask, weights, 0
-        )
-        w_f = band_cols(layout, w)
-        if layout_b is not None:
-            # reorder the override into the opposite direction's banded
-            # order via the static CSR<->CSC rank (one lax.sort).
-            if direction == "pull":
-                # need the CSC->CSR rank = inverse of csr_to_csc_rank
-                # (csc_eids is not a valid permutation over pad edges).
-                perm = apply_fixed_perm(
-                    g.csr_to_csc_rank,
-                    jnp.arange(g.m_pad, dtype=jnp.int32),
-                )
-            else:
-                perm = g.csr_to_csc_rank
-            if heads == 1:
-                w_other = apply_fixed_perm(perm, w)
-            else:
-                outs = apply_fixed_perm(
-                    perm, *[w[:, h] for h in range(heads)]
-                )
-                w_other = jnp.stack(outs, axis=1)
-            w_b = band_cols(layout_b, w_other)
-        else:
-            w_b = w_f
-    else:
-        w_f = tuple(layout.dev()["weights"])
-        w_b = (
-            tuple(layout_b.dev()["weights"])
-            if layout_b is not None
-            else w_f
-        )
-
-    fn = _make_diff_fn(layout, layout_b, precision, interpret, heads)
-    return fn(x, w_f, w_b)
-
-
-def _shapes_ok(g: GraphSlice, x: jnp.ndarray) -> bool:
-    return (
-        x.shape[-1] % 128 == 0
-        and g.n_pad % 128 == 0
-        and g.m_pad % 128 == 0
-    )
-
-
-def _banded_ok(g: GraphSlice, x: jnp.ndarray) -> bool:
-    if jax.default_backend() not in ("tpu",):
-        return False
-    return (
-        # narrow features are lane-padded up to 128 (row-count-bound
-        # gather makes that nearly free); below 32 the 128x message blow-
-        # up risks HBM at large scales, so those stay on the XLA path
-        x.shape[-1] >= 32
-        and g.n_pad % 128 == 0
-        and getattr(g, "fingerprint", None) is not None
-    )
-
-
 def sddmm(
     g: GraphSlice,
     xl: jnp.ndarray,
     xr: Optional[jnp.ndarray] = None,
     order: str = "csr",
-    impl: str = "auto",
-    precision: str = "split",
-    interpret: bool = False,
 ) -> jnp.ndarray:
     """Sampled dense-dense product: per-edge <xl[src], xr[dst]> over the
     sparsity pattern — the shape of L-Spar's per-edge similarity step
     (`lspar/lspar_functor.hxx:28-33`) and of GNN edge scoring.
 
     Returns float[m_pad] in the requested edge order.
-
-    ``impl="banded"`` (the TPU default for F >= 32) rides the banded
-    layout: K fast band gathers of one side, the banded SDDMM Pallas
-    kernel against 128-row tiles of the other, and one static-rank sort
-    back to the requested edge order — replacing the two whole-table
-    per-edge gathers of the XLA path (~8 ns/elem each).
     """
     xr = xl if xr is None else xr
-    if impl == "auto":
-        impl = (
-            "banded"
-            if (xl.ndim == 2 and _banded_ok(g, xl) and xl.shape == xr.shape)
-            else "xla"
-        )
-    if impl == "banded":
-        out = _sddmm_banded_impl(g, xl, xr, order, precision, interpret)
-        if out is not None:
-            return out
     if order == "csr":
         src, dst, mask = g.csr_srcs, g.csr_dsts, g.edge_mask
     elif order == "csc":
@@ -486,42 +98,3 @@ def sddmm(
     else:
         vals = jnp.sum(xl[src] * xr[dst], axis=-1)
     return jnp.where(mask, vals, 0)
-
-
-def _sddmm_banded_impl(g, xl, xr, order, precision, interpret):
-    """Banded SDDMM: the ``order``-matching layout's base order is exactly
-    the requested output order, so one ``permute_from_bands`` finishes.
-
-    pull layout (CSC base): messages gather XL by src band, tiles are XR
-    rows by dst.  push layout (CSR base): messages gather XR by dst band,
-    tiles are XL rows by src.  Both compute <xl[src e], xr[dst e]>.
-    """
-    from mini_tpu.ops.pallas.spmm_banded import banded_sddmm
-
-    F = xl.shape[-1]
-    if F % 128 != 0:
-        F_pad = ((F + 127) // 128) * 128
-        pad = lambda a: jnp.concatenate(
-            [a, jnp.zeros((a.shape[0], F_pad - F), a.dtype)], axis=1
-        )
-        return _sddmm_banded_impl(
-            g, pad(xl), pad(xr), order, precision, interpret
-        )
-    direction = "pull" if order == "csc" else "push"
-    row_bytes = F * 4
-    layout = get_layout(g, direction, row_bytes=row_bytes)
-    if layout is None or xl.shape[0] != layout.n_pad:
-        return None
-    gathered, tiles = (xl, xr) if direction == "pull" else (xr, xl)
-    msgs = _gather_bands(gathered, layout, precision)
-    dev = layout.dev()
-    flat = banded_sddmm(
-        dev["bounds"], dev["offs2d"], msgs,
-        tiles.astype(msgs[0].dtype)
-        if msgs[0].dtype == jnp.bfloat16 else tiles,
-        precision=precision if precision != "fast" else "split",
-        interpret=interpret, edge_chunk=layout.edge_chunk,
-    )
-    vals = layout.permute_from_bands(flat)
-    mask = g.edge_mask if order == "csr" else g.edge_mask_csc
-    return jnp.where(mask, vals, 0.0)

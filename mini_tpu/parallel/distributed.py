@@ -1,7 +1,7 @@
-"""Multi-chip execution: `shard_map` over a `jax.sharding.Mesh`.
+"""Multi-device execution: `shard_map` over a `jax.sharding.Mesh`.
 
-The communication backend is XLA collectives over ICI/DCN — `all_gather` /
-`psum` / `all_to_all` inside `shard_map` — not an external comm library
+The communication backend is XLA collectives (NCCL on GPUs) — `all_gather`
+/ `psum` / `all_to_all` inside `shard_map` — not a hand-written comm layer
 (SURVEY.md §5).  The pattern for every operator: per-dst state and edges are
 shard-local (see `partition.py`), so the only cross-chip traffic is
 
@@ -14,8 +14,7 @@ Every traversal here takes an optional ``plan`` (a
 actually read (one all-to-all of D x H slabs, H = max boundary rows)
 instead of all-gathering the full n-vector; edges then read from the
 [halo | own] buffer through the plan's static ``src_slot`` map.  Without a
-plan the v1 full-slab ``all_gather`` path is used (kept for comparison —
-`bench_scaling.py` measures both).
+plan the v1 full-slab ``all_gather`` path is used (kept for comparison).
 """
 
 from __future__ import annotations
@@ -44,10 +43,10 @@ def make_mesh_2level(
     per_slice: int | None = None,
     axes: tuple[str, str] = ("dcn", "ici"),
 ) -> Mesh:
-    """(DCN, ICI) 2-level mesh: ``num_slices`` pod slices of ``per_slice``
-    chips.  Consecutive device blocks form a slice, so the fast axis is
-    intra-slice — collectives over ``axes[1]`` ride ICI, over ``axes[0]``
-    cross slices on DCN.  Graph shards flatten as
+    """2-level mesh: ``num_slices`` groups of ``per_slice`` devices.
+    Consecutive device blocks form a group; collectives over ``axes[1]``
+    stay within a group, over ``axes[0]`` they cross groups.  Graph
+    shards flatten as
     ``slice_idx * per_slice + chip_idx`` (``P(axes)`` block order)."""
     devices = jax.devices()
     if per_slice is None:

@@ -1,5 +1,5 @@
-"""Distributed GCN over the edge-partitioned graph (BASELINE.json config 5:
-2-layer GCN, edge-partitioned across N>=2 hosts).
+"""Distributed GCN over the edge-partitioned graph (GCN training,
+edge-partitioned across N >= 2 devices).
 
 Sharding layout: activations row-sharded by the dst-range vertex partition
 (`parallel/partition.py`); parameters replicated (psum'd grads).  Each layer

@@ -1,7 +1,7 @@
 """Boundary (halo) feature exchange — the all-to-all refinement of the
-all-gather slab exchange (BASELINE.json north_star: "exchanging boundary
-frontier/feature slabs all-to-all over ICI ... overlapped with local
-segmented aggregation").
+all-gather slab exchange: boundary frontier/feature slabs move all-to-all
+through XLA collectives (NCCL on GPUs), overlapped with local segmented
+aggregation.
 
 Host side (once per graph): for every shard pair (owner t -> consumer s),
 the set of t's rows that s's in-edges read is static.  We precompute
@@ -24,11 +24,13 @@ Two refinements on top of the basic exchange:
   XLA's latency-hiding scheduler runs it while the collective is in
   flight; only the (much smaller) halo-edge aggregation waits.
 * **Hierarchical 2-level exchange** (``axes=("dcn", "ici")``): on a
-  multi-slice mesh the flat D-way all-to-all is replaced by an
-  all-to-all over the slice axis (DCN, messages bundled per slice) then
-  one over the intra-slice axis (ICI), reshaping the sender-major slab
-  layout in between.  Same rows moved, but cross-slice traffic rides DCN
-  in ``D_dcn`` bundled messages instead of ``D`` point-to-point sends.
+  two-level mesh (groups of devices) the flat D-way all-to-all is
+  replaced by an all-to-all over the group axis (messages bundled per
+  group) then one within each group, reshaping the sender-major slab
+  layout in between.  Same rows moved, but cross-group traffic goes in
+  ``D_dcn`` bundled messages instead of ``D`` point-to-point sends.  One
+  host of all-to-all linked GPUs has no slow tier; the flat exchange is
+  the one it uses.
 """
 
 from __future__ import annotations
@@ -185,9 +187,9 @@ def exchange_slabs(out_rows: jnp.ndarray, axis) -> jnp.ndarray:
     ``out_rows`` is [D, H, F] target-major on every shard; the result is
     [D, H, F] *sender*-major.  ``axis`` is either one mesh axis name (flat
     D-way ``all_to_all``) or a ("dcn", "ici") pair — then the exchange is
-    hierarchical: one all-to-all over the slice (DCN) axis moving
-    per-slice super-slabs, one over the intra-slice (ICI) axis
-    redistributing within each slice.  Flat target/sender ids are
+    hierarchical: one all-to-all over the group axis moving per-group
+    super-slabs, one over the within-group axis redistributing inside
+    each group.  Flat target/sender ids are
     ``dcn_idx * D_ici + ici_idx``, matching ``shard_map`` block order for
     ``P(("dcn", "ici"))``."""
     if isinstance(axis, str):
@@ -199,12 +201,12 @@ def exchange_slabs(out_rows: jnp.ndarray, axis) -> jnp.ndarray:
     Di = jax.lax.axis_size(a_ici)
     _, H, F = out_rows.shape
     x = out_rows.reshape(Dd, Di, H, F)  # [target dcn, target ici, H, F]
-    # phase 1 (DCN): super-slab [Di, H, F] to each slice; axis 0 becomes
-    # the SENDER dcn index
+    # phase 1 (group axis): super-slab [Di, H, F] to each group; axis 0
+    # becomes the SENDER dcn index
     x = jax.lax.all_to_all(x, a_dcn, split_axis=0, concat_axis=0,
                            tiled=True)
-    # phase 2 (ICI): redistribute target-ici rows within the slice; axis 1
-    # becomes the SENDER ici index
+    # phase 2 (within-group axis): redistribute target-ici rows within
+    # the group; axis 1 becomes the SENDER ici index
     x = jax.lax.all_to_all(x, a_ici, split_axis=1, concat_axis=1,
                            tiled=True)
     return x.reshape(Dd * Di, H, F)  # sender-flat-major
@@ -277,8 +279,8 @@ def make_halo_spmm(
         # [s, s] diagonal slab (zero rows, send_mask False) stays in the
         # buffer: all_to_all's self-block is lowered to a LOCAL copy by
         # XLA, never wire traffic, and keeping it makes the t-major slot
-        # arithmetic (slot = t*H + rank) uniform.  Wire accounting
-        # elsewhere (bench_scaling) correctly counts (D-1)*H rows/dev.
+        # arithmetic (slot = t*H + rank) uniform.  Wire traffic is
+        # (D-1)*H rows per device.
         out_rows = xs[send_idx[0].reshape(-1)].reshape(D, H, -1)
         halo = exchange_slabs(out_rows, axis)  # [D, H, F] sender-major
         buf = jnp.concatenate(

@@ -1,5 +1,5 @@
 """Distributed GNN forwards beyond GCN: GAT and GraphSAGE on the
-sharded mesh (round 4, VERDICT #9).
+sharded mesh.
 
 Both ride the same shard_map structure as `parallel/gcn.py`: per-dst
 state and edges are shard-local (`partition.py`), parameters are
@@ -244,7 +244,7 @@ def dist_sage_train(
     axis: str = "graph",
     plan=None,
 ):
-    """Distributed GraphSAGE training (round 5, VERDICT #9): the shared
+    """Distributed GraphSAGE training: the shared
     per-shard forward under ``value_and_grad``, pmean'd grads on
     replicated params, momentum SGD — the `parallel/gcn.dist_gcn_train`
     recipe over the SAGE forward.  Returns (params, losses)."""
@@ -301,7 +301,7 @@ def dist_gat_train(
     negative_slope: float = 0.2,
     plan=None,
 ):
-    """Distributed GAT training (round 5, VERDICT #9): fused-attention
+    """Distributed GAT training: fused-attention
     forward differentiated end-to-end inside shard_map (the stabilizer
     bound is stop_gradient'ed — it cancels per dst segment, so its true
     gradient is zero), pmean'd grads, momentum SGD.  Returns

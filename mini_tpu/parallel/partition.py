@@ -1,7 +1,7 @@
 """Edge partitioning of the graph across a device mesh (host-side).
 
 The reference is explicitly single-GPU (`/root/reference/README.md:4`); this
-is the BASELINE.json north-star distribution story: 1D destination-vertex
+is the multi-device distribution story: 1D destination-vertex
 range partitioning of the CSC — each shard owns a contiguous vertex range
 and *all* edges pointing into it, so every per-dst segment reduction is
 shard-local and only the frontier / feature slabs cross the interconnect.

@@ -26,7 +26,7 @@ def _key_paths(tree) -> list[str]:
     by ``jax.tree_util.keystr``.  Unlike ``str(treedef)`` this is
     comparable across jax versions, so a cross-version load still fails
     loudly when key NAMES differ even if leaf count/shape/dtype all
-    match (ADVICE r4: silent parameter permutation)."""
+    match (a silent parameter permutation otherwise)."""
     import jax
 
     leaves_kp, _ = jax.tree_util.tree_flatten_with_path(tree)
@@ -42,8 +42,7 @@ def save_pytree(path: str, tree) -> None:
         {
             "treedef": _treedef_str(treedef),
             "num_leaves": len(leaves),
-            # str(treedef) is not stable API across jax versions (ADVICE
-            # r3): record the version it was rendered by, plus a
+            # str(treedef) is not stable API across jax versions: record the version it was rendered by, plus a
             # version-independent per-leaf signature that is always
             # checked
             "jax_version": jax.__version__,

@@ -1,5 +1,5 @@
 """Tracing / profiling hooks (SURVEY.md §5: the reference has none beyond a
-wall clock; the TPU equivalents are `jax.profiler` traces and named scopes).
+wall clock; here they are `jax.profiler` traces and named scopes).
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 """Dataset module tests + end-to-end GCN accuracy on the synthetic
-arxiv-like dataset (downstream-accuracy sanity per BASELINE.json)."""
+arxiv-like dataset (downstream-accuracy sanity)."""
 
 import numpy as np
 import jax

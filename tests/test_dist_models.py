@@ -1,6 +1,5 @@
-"""Distributed L-Spar + GAT/SAGE forwards vs their single-chip forms
-(round 4, VERDICT #9: the beyond-reference models ride the multi-chip
-path too)."""
+"""Distributed L-Spar + GAT/SAGE forwards vs their single-device forms
+(the beyond-reference models ride the multi-device path too)."""
 
 import numpy as np
 import jax
@@ -72,7 +71,7 @@ def test_dist_sage_forward_matches_single_chip():
     hg, gs, pg, shards, plan, mesh, x_d, x_s = _setup(F=8)
     params = sage_init(jax.random.PRNGKey(2), [8, 16, 4])
     expect = np.asarray(
-        sage_forward(params, gs, x_s, impl="xla")
+        sage_forward(params, gs, x_s)
     )[: hg.n]
     for pl in (None, plan):
         got = np.asarray(

@@ -92,9 +92,10 @@ def test_dist_spmm_matches_dense(setup):
 
 
 def test_graft_entry_and_dryrun():
+    import pathlib
     import sys
 
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
     import __graft_entry__ as ge
 
     fn, args = ge.entry()

@@ -170,9 +170,9 @@ def test_segment_softmax_batched_matches_per_head():
 
 
 def test_engine_linear_op_vjps_match_indexed_autodiff(random_slice):
-    # round 5: the engine's linear movers carry analytic custom VJPs
-    # (sort-free transposes) so TPU training never differentiates through
-    # lax.sort; gradients must equal autodiff of the same math written
+    # the engine's linear movers carry analytic custom VJPs (sort-based
+    # transposes) so training never differentiates through lax.sort;
+    # gradients must equal autodiff of the same math written
     # with plain gathers + segment_sum (independent machinery)
     import jax
     import jax.numpy as jnp

@@ -1,6 +1,6 @@
 """GCN model tests: forward allclose vs dense NumPy oracle, training step
-convergence (BASELINE.json north_star: per-layer activations allclose with
-matching downstream accuracy)."""
+convergence (per-layer activations allclose with matching downstream
+accuracy)."""
 
 import numpy as np
 import jax
@@ -32,7 +32,7 @@ def _setup(n=120, m=700, fin=16, fhid=32, fout=4, seed=0):
 
 def test_gcn_forward_matches_dense_oracle():
     hg, gs, norm, params, x = _setup()
-    logits = gcn_forward(params, gs, norm, x, impl="xla")
+    logits = gcn_forward(params, gs, norm, x)
     params_np = [
         {"w": np.asarray(p["w"]), "b": np.asarray(p["b"])} for p in params
     ]

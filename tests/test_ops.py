@@ -3,6 +3,7 @@ neighborhood, SpMM/SDDMM — all validated against NumPy dense oracles
 (advance == masked SpMV on small graphs, per SURVEY.md §4)."""
 
 import numpy as np
+import pytest
 import jax.numpy as jnp
 
 from mini_tpu.ops import (
@@ -204,7 +205,7 @@ def test_compute_on_frontier():
 def test_spmm_pull_matches_dense(random_slice, random_graph):
     rng = np.random.RandomState(3)
     x = rng.rand(random_slice.n_pad, 8).astype(np.float32)
-    out = spmm(random_slice, jnp.asarray(x), direction="pull", impl="xla")
+    out = spmm(random_slice, jnp.asarray(x), direction="pull")
     a = dense_adj(random_graph)
     expected = a.T @ x[: random_graph.n]
     np.testing.assert_allclose(
@@ -215,7 +216,7 @@ def test_spmm_pull_matches_dense(random_slice, random_graph):
 def test_spmm_push_matches_dense(random_slice, random_graph):
     rng = np.random.RandomState(4)
     x = rng.rand(random_slice.n_pad, 4).astype(np.float32)
-    out = spmm(random_slice, jnp.asarray(x), direction="push", impl="xla")
+    out = spmm(random_slice, jnp.asarray(x), direction="push")
     a = dense_adj(random_graph)
     expected = a @ x[: random_graph.n]
     np.testing.assert_allclose(
@@ -226,12 +227,39 @@ def test_spmm_push_matches_dense(random_slice, random_graph):
 def test_spmm_vector_input(random_slice, random_graph):
     rng = np.random.RandomState(5)
     x = rng.rand(random_slice.n_pad).astype(np.float32)
-    out = spmm(random_slice, jnp.asarray(x), direction="pull", impl="xla")
+    out = spmm(random_slice, jnp.asarray(x), direction="pull")
     assert out.shape == (random_slice.n_pad,)
     expected = dense_adj(random_graph).T @ x[: random_graph.n]
     np.testing.assert_allclose(
         np.asarray(out)[: random_graph.n], expected, rtol=1e-4
     )
+
+
+@pytest.mark.parametrize("direction", ["pull", "push"])
+def test_spmm_multi_head_matches_dense(random_slice, random_graph, direction):
+    # heads=3: head h's block of x is scaled by its own weight column
+    heads, d = 3, 5
+    rng = np.random.RandomState(8)
+    n = random_graph.n
+    x = rng.rand(random_slice.n_pad, heads * d).astype(np.float32)
+    w = rng.rand(random_slice.m_pad, heads).astype(np.float32)
+    out = np.asarray(spmm(
+        random_slice, jnp.asarray(x), direction=direction,
+        weights=jnp.asarray(w), heads=heads,
+    ))[:n]
+    if direction == "pull":  # weights in CSC order: out[dst] += w x[src]
+        src, dst = random_graph.csc_srcs, random_graph.csc_dsts
+        seg, nbr = dst, src
+    else:  # weights in CSR order: out[src] += w x[dst]
+        src, dst = random_graph.csr_srcs, random_graph.csr_dsts
+        seg, nbr = src, dst
+    for h in range(heads):
+        a = np.zeros((n, n))
+        np.add.at(a, (seg, nbr), w[: random_graph.m, h])
+        np.testing.assert_allclose(
+            out[:, h * d: (h + 1) * d], a @ x[:n, h * d: (h + 1) * d],
+            rtol=1e-4, atol=1e-5,
+        )
 
 
 def test_sddmm_matches_dense(random_slice, random_graph):

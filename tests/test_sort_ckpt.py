@@ -91,7 +91,7 @@ def test_checkpoint_structure_mismatch_raises(tmp_path):
 
 
 def test_checkpoint_cross_version_key_paths(tmp_path):
-    # ADVICE r4: when the stored jax version differs, str(treedef) is
+    # when the stored jax version differs, str(treedef) is
     # skipped — the keystr key-path signature must still catch a key
     # rename with identical leaf count/shape/dtype
     import json
